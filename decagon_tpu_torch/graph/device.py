@@ -1,0 +1,282 @@
+"""Device-resident graph: per-edge-type COO streams and int8 mask stacks.
+
+Port of ``decagon_tpu/graph/device.py`` for the serving slice.  Per edge
+type the normalized train adjacencies are flattened into one padded COO
+stream (``senders``, ``receivers``, ``rel``, ``vals``; padding carries
+``vals == 0``), and, on request:
+
+* the FACTORED form (``dense_factored=True``): an int8 edge-count mask
+  ``[K, N_i, N_j]``, its transpose, and the rank-1 normalization factors
+  ``row_scale [K, N_i]`` / ``col_scale [K, N_j]`` (every value of a
+  normalized adjacency is ``row_scale[k, i] * col_scale[k, j]``);
+* the PAIRED form (``dense_paired=True``, square transpose-augmented edge
+  types): relation ``K + k`` is relation ``k`` transposed, so only the
+  direct half's masks are stored, ``pair_mask [K, N, N]`` int8, with
+  ``pair_scales [K, 4, N]`` f32 holding rows ``(a_e, a_o, b_e, b_o)``:
+  the row and column scales of the direct and the transposed half.
+
+The port pads nothing but the COO stream: the JAX package pads the pair
+stacks to its TPU block sizes, which the CUDA kernels do not need.
+Negative-sampling CDFs, the Pallas tilings and the fused stream come
+with later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from decagon_tpu_torch import DeviceLike, resolve_device
+from decagon_tpu_torch.graph.container import EdgeType, RelationGraph, RelationKey
+from decagon_tpu_torch.graph.split import EdgeSplit
+
+
+def etkey(edge_type: EdgeType) -> str:
+    return f"{edge_type[0]},{edge_type[1]}"
+
+
+def parse_etkey(key: str) -> EdgeType:
+    i, j = key.split(",")
+    return (int(i), int(j))
+
+
+def _round_up(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def _recover_rank1(splits, keys, n_i, n_j):
+    """Per-relation rank-1 normalization factors for an edge type's
+    relations, verified against the stored adjacency values: returns
+    (row_scale [K, n_i], col_scale [K, n_j]) or None if any relation's
+    normalization is not exactly rank-1 (``normalize.py``: square rule
+    uses ONE degree vector; rect uses row/col degrees)."""
+    row_scale = np.zeros((len(keys), n_i), np.float32)
+    col_scale = np.zeros((len(keys), n_j), np.float32)
+
+    def _dinv(counts):
+        with np.errstate(divide="ignore"):
+            v = np.power(counts.astype(np.float64), -0.5)
+        v[~np.isfinite(v)] = 0.0
+        return v
+
+    for k, key in enumerate(keys):
+        split = splits[key]
+        r_k, c_k, v_k = split.adj_rows, split.adj_cols, split.adj_vals
+        dr = _dinv(np.bincount(r_k, minlength=n_i))
+        dc = _dinv(np.bincount(c_k, minlength=n_j))
+        # Candidate factor pairs: the square rule keys ONE degree vector
+        # off the a_rows side — which lands on the OUTPUT cols for a
+        # direct relation and the output rows for its transpose
+        # (normalize_square's (A+I)^T flip); the rect rule uses both
+        # sides.  Accept whichever verifies.
+        candidates = [(dr, dc)]
+        if n_i == n_j:
+            candidates = [(dc, dc), (dr, dr), (dr, dc)]
+        for a_vec, b_vec in candidates:
+            if np.allclose(
+                v_k, (a_vec[r_k] * b_vec[c_k]).astype(np.float32),
+                rtol=1e-5, atol=1e-7,
+            ):
+                row_scale[k] = a_vec
+                col_scale[k] = b_vec
+                break
+        else:
+            return None
+    return row_scale, col_scale
+
+
+def _halves_are_transposes(splits, i, k_half) -> bool:
+    """True when every relation ``K + k``'s train adjacency is relation
+    ``k``'s, transposed — what the paired form relies on.  The JAX package
+    trusts ``transpose_of`` alone (``graph/device.py:369-380``); the port
+    also compares the stored adjacencies."""
+    for k in range(k_half):
+        d, t = splits[(i, i, k)], splits[(i, i, k_half + k)]
+        if not (
+            np.array_equal(d.adj_rows, t.adj_cols)
+            and np.array_equal(d.adj_cols, t.adj_rows)
+            and np.array_equal(d.adj_vals, t.adj_vals)
+        ):
+            return False
+    return True
+
+
+def _count_mask(shape, index, weight, device) -> torch.Tensor:
+    """int8 stack of ``shape`` with ``weight`` ADDED at each ``index``
+    (duplicate cells count every edge, as the JAX scatter-add does)."""
+    mask = torch.zeros(shape, dtype=torch.int8, device=device)
+    mask.index_put_(index, weight, accumulate=True)
+    return mask
+
+
+@dataclasses.dataclass
+class EdgeTypeAdj:
+    """Flattened, padded COO stack of all relations of one edge type.
+
+    ``receivers`` index rows of the adjacency (output nodes, type ``i``);
+    ``senders`` index columns (source nodes, type ``j``).  ``rel`` is the
+    within-type relation index.  Padding entries carry ``vals == 0`` and
+    index node 0 / relation 0.
+    """
+
+    senders: torch.Tensor  # int32 [E_pad]
+    receivers: torch.Tensor  # int32 [E_pad]
+    rel: torch.Tensor  # int32 [E_pad]
+    vals: torch.Tensor  # float32 [E_pad]
+    num_rel: int
+    n_rows: int
+    n_cols: int
+    dense_mask: Optional[torch.Tensor] = None  # int8 [K, n_rows, n_cols]
+    dense_mask_t: Optional[torch.Tensor] = None  # int8 [K, n_cols, n_rows]
+    row_scale: Optional[torch.Tensor] = None  # f32 [K, n_rows]
+    col_scale: Optional[torch.Tensor] = None  # f32 [K, n_cols]
+    pair_mask: Optional[torch.Tensor] = None  # int8 [K/2, N, N]
+    pair_scales: Optional[torch.Tensor] = None  # f32 [K/2, 4, N]
+
+
+@dataclasses.dataclass
+class DeviceGraph:
+    """Everything the encoder and the scorers need, on one device.
+
+    ``features``: per node type, a dense [N, F] tensor or ``None`` for
+    symbolic identity features (the projection is then the weight stack).
+    """
+
+    adj: Dict[str, EdgeTypeAdj]
+    features: Dict[str, Optional[torch.Tensor]]
+    num_nodes: Tuple[int, ...]
+    feature_dims: Tuple[int, ...]
+    decoders: Tuple[Tuple[str, str], ...]
+    device: torch.device
+
+    @property
+    def edge_types(self) -> List[EdgeType]:
+        return sorted(parse_etkey(k) for k in self.adj)
+
+    def num_relations(self, edge_type: EdgeType) -> int:
+        return self.adj[etkey(edge_type)].num_rel
+
+    def decoder_name(self, edge_type: EdgeType) -> str:
+        return dict(self.decoders)[etkey(edge_type)]
+
+
+def build_device_graph(
+    graph: RelationGraph,
+    splits: Dict[RelationKey, EdgeSplit],
+    edge_pad_multiple: int = 1024,
+    densify_max_cells: int = 8_000_000,
+    dense_factored: bool = False,
+    dense_paired: bool = False,
+    device: DeviceLike = None,
+) -> DeviceGraph:
+    """Flatten the normalized train adjacencies onto ``device`` (CUDA
+    unless named), with the factored and paired mask stacks on request.
+
+    Size gates follow the JAX package: the factored masks are built when
+    an edge type's ``K * N_i * N_j`` is at most ``densify_max_cells``, the
+    paired masks (half the cells) at up to twice that.  An edge type that
+    gets the paired masks gets no factored ones: every encoder path reads
+    the paired form there (the JAX package builds both).
+    """
+    dev = resolve_device(device)
+    adj: Dict[str, EdgeTypeAdj] = {}
+
+    for (i, j), rels in sorted(graph.relations.items()):
+        parts = [splits[(i, j, k)] for k in range(len(rels))]
+        receivers = np.concatenate([s.adj_rows for s in parts])
+        senders = np.concatenate([s.adj_cols for s in parts])
+        vals = np.concatenate([s.adj_vals for s in parts])
+        rel = np.concatenate([
+            np.full(s.adj_rows.shape[0], k, dtype=np.int32)
+            for k, s in enumerate(parts)
+        ])
+        real = vals.shape[0]
+        pad = _round_up(max(1, real), edge_pad_multiple) - real
+
+        def stream(a, dtype):
+            a = np.concatenate([a, np.zeros(pad, a.dtype)]) if pad else a
+            return torch.as_tensor(a, dtype=dtype).to(dev)
+
+        senders_dev = stream(senders.astype(np.int32), torch.int32)
+        receivers_dev = stream(receivers.astype(np.int32), torch.int32)
+        rel_dev = stream(rel, torch.int32)
+        vals_dev = stream(vals.astype(np.float32), torch.float32)
+
+        k_rel = len(rels)
+        n_i, n_j = graph.num_nodes[i], graph.num_nodes[j]
+        cells = k_rel * n_i * n_j
+        rel_keys = [(i, j, k) for k in range(k_rel)]
+        factors = None
+        if (dense_factored or dense_paired) and cells <= densify_max_cells * 2:
+            factors = _recover_rank1(splits, rel_keys, n_i, n_j)
+
+        # Real entries only: the padding would add to cell (0, 0, 0).
+        r_idx = rel_dev[:real].long()
+        i_idx = receivers_dev[:real].long()
+        j_idx = senders_dev[:real].long()
+        ones = (vals_dev[:real] != 0).to(torch.int8)
+
+        entry = EdgeTypeAdj(
+            senders=senders_dev, receivers=receivers_dev, rel=rel_dev,
+            vals=vals_dev, num_rel=k_rel, n_rows=n_i, n_cols=n_j,
+        )
+        k_half = k_rel // 2
+        if (
+            dense_paired
+            and i == j
+            and k_rel > 0
+            and k_rel % 2 == 0
+            and factors is not None
+            and cells <= densify_max_cells * 2
+            and all(
+                rels[k_half + k].transpose_of == (i, j, k)
+                for k in range(k_half)
+            )
+            and _halves_are_transposes(splits, i, k_half)
+        ):
+            direct = r_idx < k_half
+            entry.pair_mask = _count_mask(
+                (k_half, n_i, n_i),
+                (r_idx[direct], i_idx[direct], j_idx[direct]),
+                ones[direct], dev,
+            )
+            row_scale, col_scale = factors
+            entry.pair_scales = torch.as_tensor(
+                np.stack(
+                    [row_scale[:k_half], row_scale[k_half:],
+                     col_scale[:k_half], col_scale[k_half:]],
+                    axis=1,
+                )
+            ).to(dev)
+        elif dense_factored and cells <= densify_max_cells and factors is not None:
+            entry.dense_mask = _count_mask(
+                (k_rel, n_i, n_j), (r_idx, i_idx, j_idx), ones, dev
+            )
+            entry.dense_mask_t = _count_mask(
+                (k_rel, n_j, n_i), (r_idx, j_idx, i_idx), ones, dev
+            )
+            entry.row_scale = torch.as_tensor(factors[0]).to(dev)
+            entry.col_scale = torch.as_tensor(factors[1]).to(dev)
+        adj[etkey((i, j))] = entry
+
+    features: Dict[str, Optional[torch.Tensor]] = {}
+    for t in range(len(graph.num_nodes)):
+        feat = graph.features[t]
+        features[str(t)] = (
+            None if feat.kind == "identity"
+            else torch.as_tensor(feat.dense, dtype=torch.float32).to(dev)
+        )
+    return DeviceGraph(
+        adj=adj,
+        features=features,
+        num_nodes=tuple(graph.num_nodes),
+        feature_dims=tuple(graph.features[t].dim for t in range(len(graph.num_nodes))),
+        decoders=tuple(
+            (etkey(et), graph.decoders.get(et, "innerproduct"))
+            for et in sorted(graph.relations)
+        ),
+        device=dev,
+    )

@@ -1,0 +1,80 @@
+"""Import and tree hygiene of the port.
+
+The port and ``chip_smoke.py`` must run where JAX and the JAX package's
+other dependencies are absent.  A clean interpreter (this process already
+imported JAX through conftest.py) imports every module of the port and
+``chip_smoke``, then reports what ``sys.modules`` holds.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "decagon_tpu_torch"
+FORBIDDEN = ("jax", "decagon_tpu", "networkx", "sklearn", "ml_dtypes", "optax", "orbax")
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import decagon_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(decagon_tpu_torch.__path__, "decagon_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "decagon_tpu_torch.train.evaluate" in report["modules"]
+    assert "decagon_tpu_torch.ops.sddmm_pallas" in report["modules"]
+    leaked = [
+        m for m in report["loaded"]
+        if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)
+    ]
+    assert leaked == []
+
+
+def _port_files():
+    """The port's files that git would commit (or, outside a git
+    checkout, every file but build output and caches)."""
+    try:
+        out = subprocess.run(
+            ["git", "ls-files", "--cached", "--others", "--exclude-standard",
+             "decagon_tpu_torch"],
+            cwd=ROOT, capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.split()
+        return [ROOT / f for f in out]
+    except (OSError, subprocess.SubprocessError):
+        return [
+            p for p in PORT.rglob("*")
+            if p.is_file() and "_build" not in p.parts and "__pycache__" not in p.parts
+        ]
+
+
+def test_port_tree_holds_no_binaries_or_large_files():
+    files = _port_files()
+    assert any(f.name == "paired_fwd.cu" for f in files)
+    for f in files:
+        assert f.suffix not in (".so", ".npz", ".npy", ".pt", ".o"), f
+        assert f.stat().st_size <= 1 << 20, f
+
+
+@pytest.mark.parametrize("source", ["paired_fwd.cu", "sddmm.cu"])
+def test_cuda_sources_are_plain_c_interface(source):
+    """The kernels build with nvcc into a ctypes library: no PyTorch
+    headers (their build takes minutes) and every entry point extern C."""
+    text = (PORT / "csrc" / source).read_text()
+    assert "torch/extension.h" not in text and "ATen" not in text
+    assert 'extern "C"' in text
