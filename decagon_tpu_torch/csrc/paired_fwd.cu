@@ -16,6 +16,16 @@
 // nearest even), the mask converts to bf16 exactly, products are exact in
 // f32 and every sum is f32.
 //
+// Dropout keep-scales (K1/K2-ds, the identity-feature layer 1 under
+// dropout; ``has_ds=True`` in the TPU kernel): ``ds`` f32 [K, 2, N], or
+// null.  When given, the operands are bf16((p4[0,k,h,j] * ds[k,0,j]) *
+// b_e[k,j]) and bf16((p4[1,k,h,i] * ds[k,1,i]) * b_o[k,i]), in the order of
+// the plain version ``paired_ref_ds``.
+//
+// Any hidden width H: a block covers up to 64 columns of H (grid.z walks
+// the slices); a partial 16-wide fragment is zero-padded in shared memory
+// and its columns are not stored.
+//
 // Bound on this card: memory.  The mask is read once per orientation and
 // is ~400 MB per layer at paper scale; the arithmetic (4*H*N^2 per pair)
 // runs on the bf16 tensor cores through WMMA 16x16x16 fragments, far
@@ -52,10 +62,11 @@ constexpr int LDA = TK + 8;       // bf16 row stride of the mask tiles
 __device__ __forceinline__ float as_f32(float v) { return v; }
 __device__ __forceinline__ float as_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <int H>
+constexpr int HS = 64;            // hidden columns per block (one slice)
+
 struct Layout {
-  static constexpr int LDP = H + 8;   // bf16 row stride of operand tiles
-  static constexpr int LDC = H + 4;   // f32 row stride of accumulator staging
+  static constexpr int LDP = HS + 8;  // bf16 row stride of operand tiles
+  static constexpr int LDC = HS + 4;  // f32 row stride of accumulator staging
   static constexpr int MASK_BYTES = TM * LDA * 2;
   static constexpr int OPND_BYTES = TK * LDP * 2;
   static constexpr int STAGE_BYTES = 2 * MASK_BYTES + 2 * OPND_BYTES;
@@ -63,14 +74,20 @@ struct Layout {
   static constexpr int BYTES = STAGE_BYTES > ACC_BYTES ? STAGE_BYTES : ACC_BYTES;
 };
 
-template <int H, typename P>
-__global__ void __launch_bounds__(THREADS)
+// Three blocks an SM: the PPI call has only ceil(19081 / 64) = 299 blocks,
+// which then run in one wave on 132 SMs (at two, the register count the
+// runtime width guards reach uncapped, they take two).
+template <typename P>
+__global__ void __launch_bounds__(THREADS, 3)
 paired_fwd_kernel(const int8_t* __restrict__ mask, const P* __restrict__ p4,
-                  const float* __restrict__ scales, float* __restrict__ partial,
-                  int K, int N, int splits) {
-  using L = Layout<H>;
-  constexpr int NH = H / 16;
-  constexpr int PER_THREAD = TM * H / THREADS;
+                  const float* __restrict__ scales, const float* __restrict__ ds,
+                  float* __restrict__ partial, int K, int N, int H, int splits) {
+  using L = Layout;
+  constexpr int NH = HS / 16;
+  constexpr int PER_THREAD = TM * HS / THREADS;
+  const int h0 = blockIdx.z * HS;
+  const int hs = H - h0 < HS ? H - h0 : HS;  // columns of this slice
+  const int nh = (hs + 15) / 16;             // fragments that hold them
   __shared__ __align__(128) unsigned char smem[L::BYTES];
   __nv_bfloat16* me = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* mo = reinterpret_cast<__nv_bfloat16*>(smem + L::MASK_BYTES);
@@ -95,9 +112,10 @@ paired_fwd_kernel(const int8_t* __restrict__ mask, const P* __restrict__ p4,
 
   for (int k = k_begin; k < k_end; ++k) {
     const int8_t* bk = mask + k * nn;
-    const P* pe_g = p4 + static_cast<size_t>(k) * H * N;
-    const P* po_g = p4 + (static_cast<size_t>(K) + k) * H * N;
+    const P* pe_g = p4 + (static_cast<size_t>(k) * H + h0) * N;
+    const P* po_g = p4 + ((static_cast<size_t>(K) + k) * H + h0) * N;
     const float* sc = scales + static_cast<size_t>(k) * 4 * N;
+    const float* dk = ds == nullptr ? nullptr : ds + static_cast<size_t>(k) * 2 * N;
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> ce[NH], co[NH];
 #pragma unroll
@@ -122,14 +140,21 @@ paired_fwd_kernel(const int8_t* __restrict__ mask, const P* __restrict__ p4,
         const int v = (i < N && j < N) ? bk[static_cast<size_t>(i) * N + j] : 0;
         mo[r * LDA + c] = __float2bfloat16_rn(static_cast<float>(v));
       }
-      // pe[c][h] = bf16(p4[0,k,h,c0+c] * b_e[c0+c]); po likewise with b_o.
-      for (int idx = tid; idx < H * TK; idx += THREADS) {
+      // pe[c][h] = bf16(p4[0,k,h0+h,c0+c] * b_e[c0+c]); po likewise with
+      // b_o; the keep-scales, when given, multiply p first.
+      for (int idx = tid; idx < nh * 16 * TK; idx += THREADS) {
         const int h = idx / TK, c = idx % TK;
         const int j = c0 + c;
         float ve = 0.f, vo = 0.f;
-        if (j < N) {
-          ve = as_f32(pe_g[static_cast<size_t>(h) * N + j]) * sc[2 * N + j];
-          vo = as_f32(po_g[static_cast<size_t>(h) * N + j]) * sc[3 * N + j];
+        if (j < N && h < hs) {
+          ve = as_f32(pe_g[static_cast<size_t>(h) * N + j]);
+          vo = as_f32(po_g[static_cast<size_t>(h) * N + j]);
+          if (dk != nullptr) {
+            ve *= dk[j];
+            vo *= dk[N + j];
+          }
+          ve *= sc[2 * N + j];
+          vo *= sc[3 * N + j];
         }
         pe[c * L::LDP + h] = __float2bfloat16_rn(ve);
         po[c * L::LDP + h] = __float2bfloat16_rn(vo);
@@ -142,6 +167,7 @@ paired_fwd_kernel(const int8_t* __restrict__ mask, const P* __restrict__ p4,
         wmma::load_matrix_sync(fa_o, mo + warp * 16 * LDA + kk * 16, LDA);
 #pragma unroll
         for (int t = 0; t < NH; ++t) {
+          if (t >= nh) break;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
           wmma::load_matrix_sync(fb, pe + kk * 16 * L::LDP + t * 16, L::LDP);
           wmma::mma_sync(ce[t], fa_e, fb, ce[t]);
@@ -153,6 +179,7 @@ paired_fwd_kernel(const int8_t* __restrict__ mask, const P* __restrict__ p4,
     __syncthreads();  // all warps are done with the staging bytes
 #pragma unroll
     for (int t = 0; t < NH; ++t) {
+      if (t >= nh) break;
       wmma::store_matrix_sync(acc_e + warp * 16 * L::LDC + t * 16, ce[t], L::LDC,
                               wmma::mem_row_major);
       wmma::store_matrix_sync(acc_o + warp * 16 * L::LDC + t * 16, co[t], L::LDC,
@@ -162,9 +189,9 @@ paired_fwd_kernel(const int8_t* __restrict__ mask, const P* __restrict__ p4,
 #pragma unroll
     for (int t = 0; t < PER_THREAD; ++t) {
       const int e = tid + t * THREADS;
-      const int r = e / H, h = e % H;
+      const int r = e / HS, h = e % HS;
       const int n = n0 + r;
-      if (n < N) {
+      if (n < N && h < hs) {
         total[t] += sc[n] * acc_e[r * L::LDC + h] + sc[N + n] * acc_o[r * L::LDC + h];
       }
     }
@@ -174,9 +201,9 @@ paired_fwd_kernel(const int8_t* __restrict__ mask, const P* __restrict__ p4,
 #pragma unroll
   for (int t = 0; t < PER_THREAD; ++t) {
     const int e = tid + t * THREADS;
-    const int r = e / H, h = e % H;
+    const int r = e / HS, h = e % HS;
     const int n = n0 + r;
-    if (n < N) dst[static_cast<size_t>(n) * H + h] = total[t];
+    if (n < N && h < hs) dst[static_cast<size_t>(n) * H + h0 + h] = total[t];
   }
 }
 
@@ -192,23 +219,13 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
   }
 }
 
-template <int H, typename P>
-void launch(const void* mask, const void* p4, const void* scales, float* partial,
-            int K, int N, int splits, cudaStream_t stream) {
-  dim3 grid((N + TM - 1) / TM, splits);
-  paired_fwd_kernel<H, P><<<grid, THREADS, 0, stream>>>(
-      static_cast<const int8_t*>(mask), static_cast<const P*>(p4),
-      static_cast<const float*>(scales), partial, K, N, splits);
-}
-
 template <typename P>
-bool launch_h(int H, const void* mask, const void* p4, const void* scales,
-              float* partial, int K, int N, int splits, cudaStream_t stream) {
-  switch (H) {
-    case 32: launch<32, P>(mask, p4, scales, partial, K, N, splits, stream); return true;
-    case 64: launch<64, P>(mask, p4, scales, partial, K, N, splits, stream); return true;
-    default: return false;
-  }
+void launch(const void* mask, const void* p4, const void* scales, const float* ds,
+            float* partial, int K, int N, int H, int splits, cudaStream_t stream) {
+  dim3 grid((N + TM - 1) / TM, splits, (H + HS - 1) / HS);
+  paired_fwd_kernel<P><<<grid, THREADS, 0, stream>>>(
+      static_cast<const int8_t*>(mask), static_cast<const P*>(p4),
+      static_cast<const float*>(scales), ds, partial, K, N, H, splits);
 }
 
 }  // namespace
@@ -216,18 +233,22 @@ bool launch_h(int H, const void* mask, const void* p4, const void* scales,
 extern "C" {
 
 // mask int8 [K, N, N]; p4 [2, K, H, N] (f32, or bf16 when p_is_bf16);
-// scales f32 [K, 4, N]; out f32 [N, H].  ``partial`` is scratch of
-// [splits, N, H] f32, or ``out`` itself when splits == 1.
+// scales f32 [K, 4, N]; ds f32 [K, 2, N] keep-scales or null; out f32
+// [N, H].  ``partial`` is scratch of [splits, N, H] f32, or ``out`` itself
+// when splits == 1.
 int dt_paired_fwd(const void* mask, const void* p4, int p_is_bf16,
-                  const void* scales, void* partial, void* out, int K, int N,
-                  int H, int splits, void* stream) {
+                  const void* scales, const void* ds, void* partial, void* out,
+                  int K, int N, int H, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K < 1 || N < 1 || splits < 1 || splits > K) return cudaErrorInvalidValue;
+  if (K < 1 || N < 1 || H < 1 || splits < 1 || splits > K || splits > 65535 ||
+      (H + HS - 1) / HS > 65535)
+    return cudaErrorInvalidValue;
   float* part = static_cast<float*>(partial);
-  const bool ok = p_is_bf16
-      ? launch_h<__nv_bfloat16>(H, mask, p4, scales, part, K, N, splits, s)
-      : launch_h<float>(H, mask, p4, scales, part, K, N, splits, s);
-  if (!ok) return cudaErrorInvalidValue;
+  const float* dsf = static_cast<const float*>(ds);
+  if (p_is_bf16)
+    launch<__nv_bfloat16>(mask, p4, scales, dsf, part, K, N, H, splits, s);
+  else
+    launch<float>(mask, p4, scales, dsf, part, K, N, H, splits, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t count = static_cast<size_t>(N) * H;

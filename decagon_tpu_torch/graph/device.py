@@ -1,9 +1,14 @@
-"""Device-resident graph: per-edge-type COO streams and int8 mask stacks.
+"""Device-resident graph: per-edge-type COO streams, dense and int8 mask
+stacks, and the negative-sampling CDFs.
 
-Port of ``decagon_tpu/graph/device.py`` for the serving slice.  Per edge
-type the normalized train adjacencies are flattened into one padded COO
-stream (``senders``, ``receivers``, ``rel``, ``vals``; padding carries
-``vals == 0``), and, on request:
+Port of ``decagon_tpu/graph/device.py``.  Per edge type the normalized
+train adjacencies are flattened into one padded COO stream (``senders``,
+``receivers``, ``rel``, ``vals``; padding carries ``vals == 0``), and:
+
+* the DENSE stack ``[K, N_i, N_j]`` (f32 or bf16) where ``K * N_i * N_j``
+  is at most ``densify_max_cells`` and the edge type gets neither of the
+  mask forms below (the JAX package builds it beside them too; at the
+  paper's drug-drug shape that would be 3.2 GB no path reads);
 
 * the FACTORED form (``dense_factored=True``): an int8 edge-count mask
   ``[K, N_i, N_j]``, its transpose, and the rank-1 normalization factors
@@ -15,10 +20,12 @@ stream (``senders``, ``receivers``, ``rel``, ``vals``; padding carries
   ``pair_scales [K, 4, N]`` f32 holding rows ``(a_e, a_o, b_e, b_o)``:
   the row and column scales of the direct and the transposed half.
 
+``neg_cdf[etk]`` [K, N_i] f32 holds, per relation, the normalized
+cumulative unigram^0.75 distribution over row nodes for negative sampling.
+
 The port pads nothing but the COO stream: the JAX package pads the pair
-stacks to its TPU block sizes, which the CUDA kernels do not need.
-Negative-sampling CDFs, the Pallas tilings and the fused stream come
-with later slices.
+stacks to its TPU block sizes, which the CUDA kernels do not need.  The
+Pallas tilings and the fused stream come with later slices.
 """
 
 from __future__ import annotations
@@ -104,6 +111,25 @@ def _halves_are_transposes(splits, i, k_half) -> bool:
     return True
 
 
+def _neg_cdf(deg_list, k_rel: int) -> torch.Tensor:
+    """[K, N_i] f32 CDFs: relation k draws row nodes from
+    ``deg_list[k % len(deg_list)] ** 0.75`` (reference
+    ``optimizer.py:36-49``; the JAX package keeps the reference's indexing
+    into the type's square-relation degree list, with a modular wrap)."""
+    rows = []
+    for k in range(k_rel):
+        deg = deg_list[k % len(deg_list)].astype(np.float64)
+        weights = np.power(np.maximum(deg, 0.0), 0.75)
+        total = weights.sum()
+        if total <= 0:
+            weights = np.ones_like(weights)
+            total = weights.sum()
+        cdf = np.cumsum(weights) / total
+        cdf[-1] = 1.0
+        rows.append(cdf)
+    return torch.as_tensor(np.stack(rows), dtype=torch.float32)
+
+
 def _count_mask(shape, index, weight, device) -> torch.Tensor:
     """int8 stack of ``shape`` with ``weight`` ADDED at each ``index``
     (duplicate cells count every edge, as the JAX scatter-add does)."""
@@ -129,6 +155,7 @@ class EdgeTypeAdj:
     num_rel: int
     n_rows: int
     n_cols: int
+    dense: Optional[torch.Tensor] = None  # f32 or bf16 [K, n_rows, n_cols]
     dense_mask: Optional[torch.Tensor] = None  # int8 [K, n_rows, n_cols]
     dense_mask_t: Optional[torch.Tensor] = None  # int8 [K, n_cols, n_rows]
     row_scale: Optional[torch.Tensor] = None  # f32 [K, n_rows]
@@ -143,10 +170,13 @@ class DeviceGraph:
 
     ``features``: per node type, a dense [N, F] tensor or ``None`` for
     symbolic identity features (the projection is then the weight stack).
+    ``neg_cdf``: per edge type, [K, N_i] cumulative unigram^0.75
+    distributions over row-type nodes for negative sampling.
     """
 
     adj: Dict[str, EdgeTypeAdj]
     features: Dict[str, Optional[torch.Tensor]]
+    neg_cdf: Dict[str, torch.Tensor]
     num_nodes: Tuple[int, ...]
     feature_dims: Tuple[int, ...]
     decoders: Tuple[Tuple[str, str], ...]
@@ -170,19 +200,27 @@ def build_device_graph(
     densify_max_cells: int = 8_000_000,
     dense_factored: bool = False,
     dense_paired: bool = False,
+    dense_dtype: torch.dtype = torch.float32,
     device: DeviceLike = None,
 ) -> DeviceGraph:
-    """Flatten the normalized train adjacencies onto ``device`` (CUDA
-    unless named), with the factored and paired mask stacks on request.
+    """Flatten the normalized train adjacencies and the sampling CDFs onto
+    ``device`` (CUDA unless named), with the factored and paired mask
+    stacks on request.
 
-    Size gates follow the JAX package: the factored masks are built when
-    an edge type's ``K * N_i * N_j`` is at most ``densify_max_cells``, the
-    paired masks (half the cells) at up to twice that.  An edge type that
-    gets the paired masks gets no factored ones: every encoder path reads
-    the paired form there (the JAX package builds both).
+    Size gates follow the JAX package: the dense stack (in ``dense_dtype``,
+    f32 or bf16) and the factored masks are built when an edge type's
+    ``K * N_i * N_j`` is at most ``densify_max_cells``, the paired masks
+    (half the cells) at up to twice that.  An edge type that gets the
+    paired masks gets no factored ones, and one that gets either gets no
+    dense stack: every encoder path reads the mask form there (the JAX
+    package builds all three).
     """
     dev = resolve_device(device)
+    if dense_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dense_dtype must be float32 or bfloat16, not {dense_dtype}")
     adj: Dict[str, EdgeTypeAdj] = {}
+    neg_cdf: Dict[str, torch.Tensor] = {}
+    degrees = graph.degrees()
 
     for (i, j), rels in sorted(graph.relations.items()):
         parts = [splits[(i, j, k)] for k in range(len(rels))]
@@ -260,7 +298,13 @@ def build_device_graph(
             )
             entry.row_scale = torch.as_tensor(factors[0]).to(dev)
             entry.col_scale = torch.as_tensor(factors[1]).to(dev)
+        elif cells <= densify_max_cells:
+            entry.dense = torch.zeros((k_rel, n_i, n_j), dtype=dense_dtype, device=dev)
+            entry.dense.index_put_(
+                (r_idx, i_idx, j_idx), vals_dev[:real].to(dense_dtype), accumulate=True
+            )
         adj[etkey((i, j))] = entry
+        neg_cdf[etkey((i, j))] = _neg_cdf(degrees[i], k_rel).to(dev)
 
     features: Dict[str, Optional[torch.Tensor]] = {}
     for t in range(len(graph.num_nodes)):
@@ -272,6 +316,7 @@ def build_device_graph(
     return DeviceGraph(
         adj=adj,
         features=features,
+        neg_cdf=neg_cdf,
         num_nodes=tuple(graph.num_nodes),
         feature_dims=tuple(graph.features[t].dim for t in range(len(graph.num_nodes))),
         decoders=tuple(

@@ -1,47 +1,87 @@
-"""Two-layer multi-relational graph-convolution encoder (deterministic).
+"""Two-layer multi-relational graph-convolution encoder.
 
-Port of ``decagon_tpu/models/encoder.py`` for the serving slice:
+Port of ``decagon_tpu/models/encoder.py``:
 
-    layer 1:  T1_{ij} = l2norm_rows( sum_k A^{ij}_k (X_j W1^{ij}_k) )
+    layer 1:  T1_{ij} = l2norm_rows( sum_k A^{ij}_k (drop_k(X_j) W1^{ij}_k) )
               h1_i    = relu( sum_j T1_{ij} )
-    layer 2:  T2_{ij} = l2norm_rows( sum_k A^{ij}_k (h1_j W2^{ij}_k) )
+    layer 2:  T2_{ij} = l2norm_rows( sum_k A^{ij}_k (drop_k(h1_j) W2^{ij}_k) )
               emb_i   = sum_j T2_{ij}                       (no relu)
 
 (reference ``decagon/deep/model.py:64-88``, ``layers.py:70-118``).  Square
-transpose-paired edge types aggregate through the paired kernel
+transpose-paired edge types aggregate through the paired kernels
 (``ops/spmm_paired.py``) and store their weights transposed,
-``[2, K/2, H, F]``; the others through the int8 factored stack
-(``ops/segment.py``).  The dropout branches and the fused all-edge-type
-stream come with the training slice.
+``[2, K/2, H, F]``; the others through ``ops/segment.spmm`` (the int8
+factored stack, the dense stack or the COO stream).
+
+Dropout: one Bernoulli draw per layer covers every edge type's mask, in
+sorted edge-type order, with the JAX package's shapes (identity features:
+a per-(relation, node) row mask; dense features: a fresh mask per relation
+up to ``per_relation_dropout_max`` relations, else one shared mask).  On
+the paired identity path the mask becomes keep-scales ``ds [K, 2, N]``
+that the kernels apply.  ``layer_bits`` replaces the draw, so a test can
+feed the JAX package's own bits.  The fused all-edge-type stream is not
+ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from decagon_tpu_torch.graph.device import DeviceGraph, etkey
 from decagon_tpu_torch.models.init import glorot
-from decagon_tpu_torch.ops.segment import l2_normalize_rows, spmm_dense_factored
-from decagon_tpu_torch.ops.spmm_paired import spmm_paired, spmm_paired_identity
+from decagon_tpu_torch.ops.segment import (
+    SPMM_IMPLS,
+    UNPORTED_SPMM_IMPLS,
+    l2_normalize_rows,
+    spmm,
+)
+from decagon_tpu_torch.ops.spmm_paired import (
+    PAIRED_IMPLS,
+    spmm_paired,
+    spmm_paired_identity,
+)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+LayerBits = Dict[str, torch.Tensor]
 
-# spmm_impl values that take the paired path on edge types with a pair_mask
-# ("paired_ref" forces the plain version on any device).
-PAIRED_IMPLS = ("auto", "paired", "paired_ref")
+SPMM_IMPL_NAMES = ("auto",) + PAIRED_IMPLS[1:] + SPMM_IMPLS
+
+
+def check_spmm_impl(spmm_impl: str) -> None:
+    """Raise for an ``spmm_impl`` the port does not run: the Pallas and
+    fused paths are not ported (NotImplementedError), anything else is
+    unknown (ValueError)."""
+    if spmm_impl in SPMM_IMPL_NAMES:
+        return
+    if spmm_impl in UNPORTED_SPMM_IMPLS:
+        raise NotImplementedError(
+            f"spmm_impl {spmm_impl!r} is the Pallas tiled SpMM (K6), not "
+            "ported yet (ROADMAP queue 1, 'Sparse regime')"
+        )
+    if spmm_impl.startswith("fused"):
+        raise NotImplementedError(
+            f"spmm_impl {spmm_impl!r} is the fused all-edge-type stream, not "
+            "ported yet (ROADMAP queue 1, 'Fused all-edge-type stream')"
+        )
+    if spmm_impl == "paired_interpret":
+        raise NotImplementedError(
+            "'paired_interpret' is the JAX package's interpret-mode kernel; "
+            "CUDA kernels have no interpret mode: use 'paired_ref'"
+        )
+    raise ValueError(f"unknown spmm_impl: {spmm_impl!r}")
 
 
 def paired_edge_types(graph: DeviceGraph, spmm_impl: str) -> set:
     """Edge-type keys that run the PAIRED path — and therefore store their
-    encoder weights transposed ``[2, K/2, H, F]``.  Must agree between
+    encoder weights transposed ``[2, K/2, H, F]``.  Empty unless
+    ``spmm_impl`` is a paired one.  Must agree between
     ``init_encoder_params`` and ``encode``."""
+    check_spmm_impl(spmm_impl)
     if spmm_impl not in PAIRED_IMPLS:
-        raise NotImplementedError(
-            f"spmm_impl {spmm_impl!r} is not ported yet; use one of "
-            f"{PAIRED_IMPLS}"
-        )
+        return set()
     return {key for key, adj in graph.adj.items() if adj.pair_mask is not None}
 
 
@@ -74,19 +114,73 @@ def init_encoder_params(
     return {"enc1": enc1, "enc2": enc2}
 
 
-def _project(feat: Optional[torch.Tensor], weights: torch.Tensor) -> torch.Tensor:
+def _dropped(mask: Optional[torch.Tensor], x: torch.Tensor, keep: float) -> torch.Tensor:
+    return x if mask is None else torch.where(mask, x / keep, 0.0)
+
+
+def _project(
+    feat: Optional[torch.Tensor],
+    weights: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    keep: float = 1.0,
+) -> torch.Tensor:
     """Per-relation projected features P [K, N_src, H] (identity features:
-    ``X @ W == W``)."""
+    ``X @ W == W``).  ``mask``: this edge type's keep-mask from the layer's
+    draw ([K, F, 1], [K, N, F] or [N, F]), or None for no dropout."""
     if feat is None:
-        return weights
-    return torch.einsum("nf,kfh->knh", feat, weights)
+        return _dropped(mask, weights, keep)
+    x = _dropped(mask, feat, keep)
+    if x.dim() == 3:
+        return torch.einsum("knf,kfh->knh", x, weights)
+    return torch.einsum("nf,kfh->knh", x, weights)
 
 
-def _project_t(feat: Optional[torch.Tensor], weights_t: torch.Tensor) -> torch.Tensor:
-    """Transposed projection for paired edge types: P^T [2, K, H, N]."""
+def _project_t(
+    feat: Optional[torch.Tensor],
+    weights_t: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    keep: float = 1.0,
+) -> torch.Tensor:
+    """Transposed projection for paired edge types: P^T [2, K, H, N].
+    ``mask``: [2, K, 1, F] (identity), [2K, N, F] or [N, F] (dense), or
+    None."""
     if feat is None:
-        return weights_t
-    return torch.einsum("skhf,nf->skhn", weights_t, feat)
+        return _dropped(mask, weights_t, keep)
+    x = _dropped(mask, feat, keep)
+    if x.dim() == 3:
+        x = x.reshape(weights_t.shape[0], weights_t.shape[1], *x.shape[1:])
+        return torch.einsum("skhf,sknf->skhn", weights_t, x)
+    return torch.einsum("skhf,nf->skhn", weights_t, x)
+
+
+def layer_mask_spans(
+    params: Params,
+    graph: DeviceGraph,
+    level: str,
+    inputs: Dict[str, Optional[torch.Tensor]],
+    paired: set,
+    per_relation_dropout_max: int,
+):
+    """(etkey, start, shape) of each edge type's mask within the layer's
+    one flat draw, in sorted edge-type order, and the draw's length."""
+    spans, total = [], 0
+    for et in graph.edge_types:
+        key = etkey(et)
+        w = params[level][key]
+        k = 2 * w.shape[1] if key in paired else w.shape[0]
+        feat = inputs[str(et[1])]
+        if feat is None:
+            shape = (
+                (2, w.shape[1], 1, w.shape[3]) if key in paired
+                else (k, w.shape[1], 1)
+            )
+        elif k <= per_relation_dropout_max:
+            shape = (k,) + tuple(feat.shape)
+        else:
+            shape = tuple(feat.shape)
+        spans.append((key, total, shape))
+        total += int(np.prod(shape))
+    return spans, total
 
 
 def encode_layer(
@@ -96,11 +190,40 @@ def encode_layer(
     inputs: Dict[str, Optional[torch.Tensor]],
     relu: bool,
     spmm_impl: str = "auto",
+    dropout_rate: float = 0.0,
+    bits: Optional[torch.Tensor] = None,
+    per_relation_dropout_max: int = 64,
 ) -> Dict[str, torch.Tensor]:
     """One encoder layer: per node type, the sum over incoming edge types
-    of the row-normalized aggregation (``relu`` applied to the sum)."""
+    of the row-normalized aggregation (``relu`` applied to the sum).
+    ``bits``: the layer's flat bool keep-draw (``layer_mask_spans``), or
+    None for no dropout."""
     paired = paired_edge_types(graph, spmm_impl)
     pimpl = "paired_ref" if spmm_impl == "paired_ref" else "auto"
+    base_impl = "auto" if spmm_impl in PAIRED_IMPLS else spmm_impl
+    keep = 1.0 - dropout_rate
+    masks: Dict[str, torch.Tensor] = {}
+    if bits is not None:
+        spans, total = layer_mask_spans(
+            params, graph, level, inputs, paired, per_relation_dropout_max
+        )
+        if tuple(bits.shape) != (total,):
+            raise ValueError(f"{level}: expected {total} dropout bits, got {tuple(bits.shape)}")
+        for key, start, shape in spans:
+            masks[key] = bits[start : start + int(np.prod(shape))].reshape(shape)
+
+    def resolve(adj) -> str:
+        """Per-edge-type aggregation form.  On CUDA the JAX package's
+        accelerator dispatch (factored, dense, COO); on the CPU the
+        factored stack where built, else the COO stream."""
+        if base_impl != "auto":
+            return base_impl
+        if adj.dense_mask is not None:
+            return "dense_factored"
+        if adj.senders.is_cuda and adj.dense is not None:
+            return "dense"
+        return "xla"
+
     out: Dict[str, torch.Tensor] = {}
     for i in range(len(graph.num_nodes)):
         acc = None
@@ -111,21 +234,16 @@ def encode_layer(
             adj = graph.adj[key]
             feat = inputs[str(et[1])]
             w = params[level][key]
+            m = masks.get(key)
             if key in paired and feat is None:
-                agg = spmm_paired_identity(w, None, adj, impl=pimpl)
+                ds = None
+                if m is not None:
+                    ds = torch.where(m[:, :, 0, :], 1.0 / keep, 0.0).transpose(0, 1)
+                agg = spmm_paired_identity(w, ds, adj, impl=pimpl)
             elif key in paired:
-                agg = spmm_paired(_project_t(feat, w), adj, impl=pimpl)
-            elif adj.dense_mask is not None:
-                agg = spmm_dense_factored(
-                    _project(feat, w), adj.dense_mask, adj.dense_mask_t,
-                    adj.row_scale, adj.col_scale,
-                )
+                agg = spmm_paired(_project_t(feat, w, m, keep), adj, impl=pimpl)
             else:
-                raise NotImplementedError(
-                    f"edge type {key} has neither a paired nor a factored mask "
-                    "stack; build the device graph with dense_factored=True "
-                    "(other aggregation forms come with a later slice)"
-                )
+                agg = spmm(_project(feat, w, m, keep), adj, impl=resolve(adj))
             term = l2_normalize_rows(agg)
             acc = term if acc is None else acc + term
         if acc is None:
@@ -135,8 +253,45 @@ def encode_layer(
 
 
 def encode(
-    params: Params, graph: DeviceGraph, spmm_impl: str = "auto"
+    params: Params,
+    graph: DeviceGraph,
+    generator: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.0,
+    deterministic: bool = True,
+    spmm_impl: str = "auto",
+    per_relation_dropout_max: int = 64,
+    layer_bits: Optional[LayerBits] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Deterministic node embeddings per type: {"0": [N_0, H2], ...}."""
-    h1 = encode_layer(params, graph, "enc1", graph.features, True, spmm_impl)
-    return encode_layer(params, graph, "enc2", h1, False, spmm_impl)
+    """Node embeddings per type: {"0": [N_0, H2], ...}.
+
+    Dropout runs when ``deterministic`` is False, ``dropout_rate`` > 0 and
+    either ``generator`` (one Bernoulli draw per layer, on the generator's
+    device) or ``layer_bits`` ({"enc1": bool [total1], "enc2": bool
+    [total2]}, replacing the draws) is given."""
+    check_spmm_impl(spmm_impl)
+    drop = not deterministic and dropout_rate > 0.0
+    paired = paired_edge_types(graph, spmm_impl)
+    keep = 1.0 - dropout_rate
+
+    def bits_for(level, inputs):
+        if not drop:
+            return None
+        if layer_bits is not None:
+            return layer_bits[level].to(graph.device)
+        if generator is None:
+            return None
+        _, total = layer_mask_spans(
+            params, graph, level, inputs, paired, per_relation_dropout_max
+        )
+        u = torch.rand(total, generator=generator, device=generator.device)
+        return (u < keep).to(graph.device)
+
+    kw = dict(
+        spmm_impl=spmm_impl, dropout_rate=dropout_rate,
+        per_relation_dropout_max=per_relation_dropout_max,
+    )
+    h1 = encode_layer(
+        params, graph, "enc1", graph.features, True,
+        bits=bits_for("enc1", graph.features), **kw,
+    )
+    return encode_layer(params, graph, "enc2", h1, False, bits=bits_for("enc2", h1), **kw)

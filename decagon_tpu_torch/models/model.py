@@ -10,7 +10,7 @@ across); the module holds the configuration and the graph's metadata.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -18,7 +18,13 @@ from torch import nn
 from decagon_tpu_torch.graph.container import EdgeType
 from decagon_tpu_torch.graph.device import DeviceGraph, etkey
 from decagon_tpu_torch.models import decoders as dec
-from decagon_tpu_torch.models.encoder import encode, init_encoder_params
+from decagon_tpu_torch.models.encoder import (
+    LayerBits,
+    check_spmm_impl,
+    encode,
+    init_encoder_params,
+)
+from decagon_tpu_torch.ops.segment import dropout
 
 Params = Dict[str, Dict]
 
@@ -28,12 +34,15 @@ class ModelConfig:
     """Model hyperparameters, with every field of the JAX package's
     ``ModelConfig`` (reference defaults: hidden 64->32, dropout 0.1).
 
-    Ported values: ``spmm_impl`` "auto"/"paired" (kernels on CUDA, plain
-    versions on the CPU) or "paired_ref" (plain versions everywhere);
-    ``sddmm_impl`` "auto" (kernel on CUDA, plain on the CPU) or "jnp" (the
-    plain gather-and-multiply path); ``sddmm_precision`` "highest".
-    ``dropout``, ``per_relation_dropout_max``, ``spmm_precision`` and
-    ``remat`` only matter for training, which comes with a later slice.
+    Ported values: ``spmm_impl`` "auto"/"paired" (paired kernels on CUDA,
+    plain versions on the CPU), "paired_ref" (plain versions everywhere),
+    "xla", "dense" or "dense_factored" (``ops/segment.spmm`` for every edge
+    type); ``sddmm_impl`` "auto" (kernel on CUDA, plain on the CPU) or
+    "jnp" (the plain gather-and-multiply path); ``sddmm_precision``
+    "highest".  ``spmm_precision`` only steers the Pallas SpMM, which is
+    not ported.  Construction raises for the unported ``spmm_impl`` values
+    ("pallas*", "fused*"), for ``remat`` (ROADMAP queue 1, 'Sparse regime') and for a
+    hidden width below 1; every positive width runs.
     """
 
     hidden1: int = 64
@@ -46,6 +55,18 @@ class ModelConfig:
     sddmm_precision: str = "highest"
     remat: bool = False
 
+    def __post_init__(self):
+        check_spmm_impl(self.spmm_impl)
+        if self.remat:
+            raise NotImplementedError(
+                "remat (encoder rematerialization) is not ported yet "
+                "(ROADMAP queue 1, 'Sparse regime')"
+            )
+        if self.hidden1 < 1 or self.hidden2 < 1:
+            raise ValueError(
+                f"hidden widths must be positive, got {self.hidden1}, {self.hidden2}"
+            )
+
 
 def _to_device(tree, device):
     if isinstance(tree, dict):
@@ -55,7 +76,7 @@ def _to_device(tree, device):
 
 class DecagonModel(nn.Module):
     """Holds the configuration and the graph's metadata; ``forward`` is
-    the deterministic encoder (``embeddings``)."""
+    the encoder (``embeddings``)."""
 
     def __init__(self, config: ModelConfig, graph: DeviceGraph):
         super().__init__()
@@ -79,13 +100,28 @@ class DecagonModel(nn.Module):
         }
         return _to_device(params, graph.device)
 
-    @torch.no_grad()
-    def embeddings(self, params: Params, graph: DeviceGraph) -> Dict[str, torch.Tensor]:
-        return encode(params, graph, spmm_impl=self.config.spmm_impl)
+    def embeddings(
+        self,
+        params: Params,
+        graph: DeviceGraph,
+        generator: Optional[torch.Generator] = None,
+        deterministic: bool = True,
+        layer_bits: Optional[LayerBits] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Node embeddings per type; with ``deterministic=False`` the
+        encoder's dropout draws from ``generator`` (or takes
+        ``layer_bits``, see ``models/encoder.encode``)."""
+        return encode(
+            params, graph, generator,
+            dropout_rate=self.config.dropout,
+            deterministic=deterministic,
+            spmm_impl=self.config.spmm_impl,
+            per_relation_dropout_max=self.config.per_relation_dropout_max,
+            layer_bits=layer_bits,
+        )
 
     forward = embeddings
 
-    @torch.no_grad()
     def score_edges(
         self,
         params: Params,
@@ -95,12 +131,21 @@ class DecagonModel(nn.Module):
         k,
         rows: torch.Tensor,
         cols: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        deterministic: bool = True,
     ) -> torch.Tensor:
         """Logit scores for B (row, col) pairs of relation ``k`` of
-        ``edge_type`` (``k`` an int or a per-edge index tensor)."""
+        ``edge_type`` (``k`` an int or a per-edge index tensor).
+
+        Decoder-input dropout is opt-in (``deterministic=False`` and a
+        ``generator``), as in the JAX package: the reference's training
+        path applies none, so the train step does not use it."""
         name = graph.decoder_name(edge_type)
         z_rows = embeddings[str(edge_type[0])][rows.long()]
         z_cols = embeddings[str(edge_type[1])][cols.long()]
+        if not deterministic and generator is not None:
+            z_rows = dropout(generator, z_rows, self.config.dropout)
+            z_cols = dropout(generator, z_cols, self.config.dropout)
         return dec.score_edges(
             params["dec"][etkey(edge_type)], name, k, z_rows, z_cols
         )

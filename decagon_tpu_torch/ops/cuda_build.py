@@ -27,12 +27,12 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("paired_fwd.cu", "sddmm.cu")
+SOURCES = ("paired_fwd.cu", "paired_bwd.cu", "sddmm.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches per wrapper since the last ``reset_launches``.
-LAUNCHES: Dict[str, int] = {"paired_fwd": 0, "sddmm": 0}
+LAUNCHES: Dict[str, int] = {"paired_fwd": 0, "paired_bwd": 0, "sddmm": 0}
 # What the last build did: seconds, and ptxas' per-kernel report.
 BUILD_INFO: Dict[str, object] = {}
 
@@ -126,7 +126,11 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             lib.dt_paired_fwd.restype = _I
             lib.dt_paired_fwd.argtypes = [
-                _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+            ]
+            lib.dt_paired_bwd.restype = _I
+            lib.dt_paired_bwd.argtypes = [
+                _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
             ]
             lib.dt_sddmm.restype = _I
             lib.dt_sddmm.argtypes = [

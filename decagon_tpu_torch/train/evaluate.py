@@ -195,17 +195,25 @@ class AccuracyEvaluator:
         graph: RelationGraph,
         splits: Dict[RelationKey, EdgeSplit],
         apk_k: int = 50,
+        pad_multiple: int = 512,
+        embed_fn=None,
         score_chunk: int = 65536,
         device: DeviceLike = None,
     ):
-        """``device``: where the staged index tensors live — the device of
+        """``embed_fn``: optional ``(params, device_graph) -> embeddings``
+        override (the JAX CLI passes its trainer's, which the mesh path
+        needs); the default is the deterministic forward.
+        ``pad_multiple``: kept for the JAX package's signature, which
+        stores it unused: batches are scored in ``score_chunk`` chunks.
+        ``device``: where the staged index tensors live — the device of
         the device graph and parameters (CUDA unless named)."""
         self.model = model
         self.splits = splits
         self.apk_k = apk_k
+        self.pad_multiple = pad_multiple
         self.score_chunk = score_chunk
         self.device = resolve_device(device)
-        self._embed = make_embed_fn(model)
+        self._embed = embed_fn if embed_fn is not None else make_embed_fn(model)
         # Padded (ks, rows, cols) per holdout set, staged on the device
         # once: the splits do not change between evaluations.
         self._staged: Dict = {}

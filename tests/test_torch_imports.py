@@ -37,8 +37,9 @@ def test_port_and_chip_smoke_import_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "decagon_tpu_torch.train.evaluate" in report["modules"]
-    assert "decagon_tpu_torch.ops.sddmm_pallas" in report["modules"]
+    for module in ("train.evaluate", "ops.sddmm_pallas", "train.step", "ops.optim",
+                   "train.negatives", "models.losses"):
+        assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]
         if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)
@@ -71,7 +72,21 @@ def test_port_tree_holds_no_binaries_or_large_files():
         assert f.stat().st_size <= 1 << 20, f
 
 
-@pytest.mark.parametrize("source", ["paired_fwd.cu", "sddmm.cu"])
+@pytest.mark.parametrize("name", ["optax", "networkx", "jax"])
+def test_port_sources_name_no_forbidden_package(name):
+    """No source line of the port or of ``chip_smoke.py`` imports the JAX
+    package's dependencies, even behind a branch the probe above does not
+    take."""
+    import re
+
+    pattern = re.compile(rf"^\s*(import|from)\s+{name}\b", re.M)
+    files = [f for f in _port_files() if f.suffix == ".py"] + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        assert not pattern.search(f.read_text()), f
+
+
+@pytest.mark.parametrize("source", ["paired_fwd.cu", "paired_bwd.cu", "sddmm.cu"])
 def test_cuda_sources_are_plain_c_interface(source):
     """The kernels build with nvcc into a ctypes library: no PyTorch
     headers (their build takes minutes) and every entry point extern C."""
