@@ -36,7 +36,29 @@ Phases, each announced with the seconds elapsed since start:
    N > 4096 case; errors, bitwise repeatability, CUDA-event times and
    bounds;
 9. small-input training: 3 Adam steps through the kernels and through
-   the plain versions from the same state, bits and negatives.
+   the plain versions from the same state, bits and negatives;
+10. trainer (paper scale): launch counters set to 0, then the ``Trainer``
+   with the default ``TrainConfig`` (bf16 moments and large gradients) in
+   chunks of 32 steps: one warm-up chunk and 3 timed ones; ms per step,
+   edges/s in ``bench.py``'s schema, peak memory, the launches (both
+   paired kernels > 0, the one-pass Adam 0: its gate wants f32 moments),
+   and the gap to phase 7's single-step time;
+11. one-pass Adam (K7) against its plain version: the paper leaf it
+   updates (``[1, 19081, 64]``), P6's ``[1926, 64, 645]`` in f32 and in
+   P6's bf16, a length that is not a multiple of 4 and a view off 16-byte
+   alignment; bitwise equality, in place; device times (a replayed CUDA
+   graph, operands outside the L2 cache) of the kernel, the plain chain
+   and ``torch.optim.Adam(fused=True)``, and the bounds;
+12. trainer with ``pallas_adam`` (paper scale, f32 moments and gradients):
+   launch counters set to 0, one chunk of 4 steps from a copy of phase
+   10's state, which must launch the one-pass Adam once a step, and the
+   same chunk without it from another copy: parameters and moments equal;
+13. dummy config on the card: the port's copy of the JAX package's
+   ``test_dummy_config_learns_into_reference_band`` (500 genes, 400
+   drugs, 3 side effects; the ``Trainer`` in chunks of 50), whose last
+   epoch runs with a ``MetricsLogger`` and a ``Checkpointer`` in a
+   temporary directory; the checkpoint is restored into a fresh
+   ``Trainer``.
 
 The second-to-last lines are the kernel report (one JSON object) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``.
@@ -83,6 +105,18 @@ SDDMM_REL_TOL = 1e-5
 # kernel alone, on identical inputs, is held to 1e-4 in phase 8.
 STEP_GRAD_TOL = 2.0 ** -6
 TRAIN_STEPS = {(1, 1): 4, (0, 0): 2}
+TRAINER_CHUNK = 32
+TRAINER_WINDOWS = 3
+PALLAS_CHUNK = 4
+# Phase 12 holds the chunk with the one-pass Adam against the chunk without
+# it to this share of each leaf's largest magnitude where the two are not
+# equal bit for bit (the kernel rounds as the plain chain does).
+PALLAS_REL_TOL = 1e-6
+# Epochs of the dummy-config gate (phase 13).  The JAX test reads after 3,
+# where the port's pooled test AUROC reaches 0.62 for only some trainer
+# seeds; after 8 every seed swept clears it by 0.027 or more
+# (``python -m decagon_tpu_torch.scripts.quality_sweep``).
+GATE_EPOCHS = 8
 
 PAPER = dict(
     n_proteins=19081, n_drugs=645, n_side_effects=963,
@@ -490,13 +524,15 @@ def train(dg, params, model, splits, seed):
     import torch
 
     from decagon_tpu_torch.ops import cuda_build
-    from decagon_tpu_torch.train.step import TrainConfig, make_optimizer, make_train_step
+    from decagon_tpu_torch.train.step import (
+        TrainConfig, make_optimizer, make_train_step, step_generator,
+    )
 
     cfg = TrainConfig(batch_size=512, loss="hinge", adam_moments_dtype="bfloat16",
                       grad_dtype="bfloat16")
     opt = make_optimizer(cfg)
     state = opt.init(params)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step_no = 0
     rec = Recorder()
     summary = {}
     cuda_build.reset_launches()
@@ -516,7 +552,9 @@ def train(dg, params, model, splits, seed):
             torch.cuda.synchronize()
             t = time.perf_counter()
             events["start"].record()
-            params, state, loss = step(params, state, dg, k, rows, cols, gen, marks=marks)
+            params, state, loss = step(params, state, dg, k, rows, cols,
+                                       step_generator(seed, step_no, "cuda"), marks=marks)
+            step_no += 1
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t))
             rec.on = False
@@ -715,7 +753,205 @@ def small_training(device):
             raise AssertionError(f"small training step {s}: kernels and plain versions differ")
 
 
-def kernel_entry(name, source, replaces, launches, rows):
+def _clone(tree, dtype=None):
+    import torch
+
+    if isinstance(tree, dict):
+        return {key: _clone(value, dtype) for key, value in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone() if dtype is None else tree.detach().to(dtype, copy=True)
+    return tree
+
+
+def trainer_phase(graph, splits, dg, model, seed, step_ms):
+    """The ``Trainer`` at paper scale with the default configuration, in
+    chunks; returns (launch counts, summary, trainer state)."""
+    import torch
+
+    from decagon_tpu_torch.bench import config_metrics, graph_nnz, steady_state_ms
+    from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.train.step import TrainConfig
+    from decagon_tpu_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(batch_size=512, scan_chunk=TRAINER_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(model, graph, splits, dg, cfg, seed=seed)
+    cuda_build.reset_launches()
+    timing = steady_state_ms(trainer, TRAINER_CHUNK, TRAINER_WINDOWS)
+    counts = dict(cuda_build.LAUNCHES)
+    losses = timing.pop("losses")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"trainer losses not finite: {losses.tolist()}")
+    summary = dict(
+        steps=len(losses), chunk=TRAINER_CHUNK, first_losses=losses[:4].tolist(),
+        last_losses=losses[-4:].tolist(), **config_metrics(graph_nnz(dg), timing),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        single_step_ms_phase7=step_ms,
+        chunk_minus_single_step_ms=timing["median_ms"] - step_ms,
+        launches=counts,
+    )
+    log(f"trainer summary {json.dumps(summary)}")
+    for name in ("paired_fwd", "paired_bwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the Trainer's path")
+    if counts["adam"] != 0:
+        raise AssertionError("the one-pass Adam launched with bf16 moments")
+    return counts, summary, _clone(trainer.state_dict())
+
+
+def check_adam(device):
+    """K7 and its bf16 instantiation against the plain chain."""
+    import torch
+
+    from decagon_tpu_torch.scripts.probe_adam_onepass import make_case, run_case
+
+    cases = [
+        ("paper leaf enc1/1,0 [1, 19081, 64] f32", (1, 19081, 64), torch.float32, 0, 20),
+        ("P6 shape [1926, 64, 645] f32", (1926, 64, 645), torch.float32, 0, 10),
+        ("P6 case [1926, 64, 645] bf16 g/m/v", (1926, 64, 645), torch.bfloat16, 0, 10),
+        ("odd length 1,000,003 f32", (1_000_003,), torch.float32, 0, 20),
+        ("view at offset 3, 1,048,581 f32", (1_048_581,), torch.float32, 3, 20),
+    ]
+    rows = []
+    for label, shape, dtype, offset, iters in cases:
+        row = run_case(label, make_case(shape, dtype, device, seed=len(rows), offset=offset),
+                       iters)
+        row["x_bound"] = row["ms"] / max(row["bytes_ms"], row["ops_ms"])
+        log(json.dumps(row))
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def pallas_trainer(graph, splits, dg, model, seed, state):
+    """One chunk with ``pallas_adam`` (f32 moments and gradients) from a
+    copy of ``state``, and the same chunk without it from another copy;
+    returns the launch counts of the first."""
+    import dataclasses
+
+    import torch
+
+    from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.timing import hard_sync
+    from decagon_tpu_torch.train.step import TrainConfig
+    from decagon_tpu_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(batch_size=512, scan_chunk=PALLAS_CHUNK, pallas_adam=True,
+                      adam_moments_dtype="float32", grad_dtype="float32")
+    opt32 = {"m": _clone(state["opt_state"]["m"], torch.float32),
+             "v": _clone(state["opt_state"]["v"], torch.float32), "t": state["opt_state"]["t"]}
+    start = dict(state, opt_state=opt32)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for pallas in (True, False):
+            trainer = Trainer(model, graph, splits, dg, dataclasses.replace(cfg, pallas_adam=pallas),
+                              seed=seed, init_state=_clone(start))
+            epoch = trainer.scheduler.epoch()
+            batches = [next(epoch) for _ in range(PALLAS_CHUNK)]
+            cuda_build.reset_launches()
+            losses = trainer.train_chunk(batches, PALLAS_CHUNK)
+            hard_sync(trainer.params)
+            out[pallas] = (dict(cuda_build.LAUNCHES), losses.cpu(), _leaves(trainer.params),
+                           _leaves(trainer.opt_state["m"]), _leaves(trainer.opt_state["v"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (counts, lk, pk, mk, vk), (counts_plain, lp, pp, mp, vp) = out[True], out[False]
+    log(f"pallas_adam chunk: launches {counts} (without: {counts_plain}); losses {lk.tolist()} "
+        f"/ {lp.tolist()}")
+    if counts["adam"] != PALLAS_CHUNK or counts_plain["adam"] != 0:
+        raise AssertionError(f"one-pass Adam launched {counts['adam']} times in "
+                             f"{PALLAS_CHUNK} steps (one eligible leaf a step)")
+    worst, unequal = 0.0, []
+    for kind, got, want in (("param", pk, pp), ("m", mk, mp), ("v", vk, vp)):
+        for name, w in want.items():
+            if torch.equal(got[name], w):
+                continue
+            unequal.append(f"{kind}{name}")
+            err = (got[name] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            worst = max(worst, err)
+    log(f"pallas_adam chunk against the chain: {len(unequal)} leaves not bitwise equal "
+        f"{unequal[:8]}, worst {worst:.3g} of the leaf's max (bound {PALLAS_REL_TOL})")
+    if worst > PALLAS_REL_TOL or not torch.allclose(lk, lp, rtol=1e-5, atol=0.0):
+        raise AssertionError("the chunk with the one-pass Adam differs from the chain's")
+    return counts, dict(steps=PALLAS_CHUNK, launches=counts, bitwise_equal=not unequal,
+                        unequal_leaves=unequal, worst_rel_err=worst)
+
+
+def checkpoint_round_trip(trainer, evaluator, seed):
+    """One ``MetricsLogger`` epoch with a ``Checkpointer`` (in a temporary
+    directory), then a fresh ``Trainer`` restored from it: the same state,
+    on the same device."""
+    import tempfile
+
+    import torch
+
+    from decagon_tpu_torch.train.checkpoint import Checkpointer
+    from decagon_tpu_torch.train.logger import MetricsLogger
+    from decagon_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(f"{tmp}/ck", max_to_keep=2, every_n_iterations=10**9)
+        logger = MetricsLogger(evaluator, f"{tmp}/log", checkpointer=ck,
+                               every_n_iterations=10**9, quiet=True)
+        trainer.iteration_hook, trainer.epoch_hook = logger.on_iteration, logger.on_epoch_end
+        trainer.train(num_epochs=1)
+        logger.close()
+        with open(logger.path) as f:
+            lines = f.read().splitlines()
+        fresh = Trainer(trainer.model, trainer.graph, trainer.splits, trainer.device_graph,
+                        trainer.config, seed=seed + 1)
+        if not fresh.try_resume(ck):
+            raise AssertionError("no checkpoint to restore")
+        saved, restored = trainer.state_dict(), fresh.state_dict()
+        same = (saved["global_step"], saved["opt_step"]) == (restored["global_step"],
+                                                             restored["opt_step"])
+        for tree in ("params", "opt_state"):
+            a, b = _leaves(saved[tree]), _leaves(restored[tree])
+            same = same and a.keys() == b.keys() and all(
+                torch.equal(a[k], b[k]) and a[k].device == b[k].device
+                if isinstance(a[k], torch.Tensor) else a[k] == b[k] for k in a)
+        log(f"metrics log {len(lines)} lines, last {lines[-1]!r}; checkpoint at step "
+            f"{ck.latest_step()} restored equal: {same}")
+        if not same or ck.latest_step() != trainer.global_step:
+            raise AssertionError("checkpoint round trip differs")
+
+
+def dummy_gate(device, seed):
+    """The port's copy of the JAX package's dummy-config quality gate; its
+    last epoch is ``checkpoint_round_trip``'s."""
+    from decagon_tpu_torch.graph.device import build_device_graph
+    from decagon_tpu_torch.graph.split import split_graph
+    from decagon_tpu_torch.graph.synthetic import make_synthetic_graph
+    from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
+    from decagon_tpu_torch.train.evaluate import AccuracyEvaluator
+    from decagon_tpu_torch.train.step import TrainConfig
+    from decagon_tpu_torch.train.trainer import Trainer
+
+    graph = make_synthetic_graph(n_genes=500, n_drugs=400, n_drugdrug_types=3, seed=0)
+    splits = split_graph(graph, val_frac=0.05, test_frac=0.0, seed=1)
+    dg = build_device_graph(graph, splits, device=device)
+    model = DecagonModel(ModelConfig(hidden1=64, hidden2=32, dropout=0.1), dg)
+    cfg = TrainConfig(batch_size=512, learning_rate=1e-3, num_epochs=1, scan_chunk=50)
+    trainer = Trainer(model, graph, splits, dg, cfg, seed=seed)
+    evaluator = AccuracyEvaluator(model, graph, splits, device=device)
+    before = evaluator.evaluate_all_drug_drug(trainer.params, dg, use_test=True).auroc
+    t = time.perf_counter()
+    trainer.train(num_epochs=GATE_EPOCHS - 1)
+    checkpoint_round_trip(trainer, evaluator, seed)
+    after = evaluator.evaluate_all_drug_drug(trainer.params, dg, use_test=True).auroc
+    log(f"dummy config: pooled test AUROC {before:.4f} untrained, {after:.4f} after "
+        f"{GATE_EPOCHS} epochs ({trainer.global_step} steps, {time.perf_counter() - t:.1f}s)")
+    if not (0.4 <= before <= 0.6 and after >= 0.62 and after > before + 0.05):
+        raise AssertionError(f"dummy config outside the reference band: {before} -> {after}")
+    return dict(auroc_untrained=before, auroc_trained=after, epochs=GATE_EPOCHS,
+                steps=trainer.global_step)
+
+
+def kernel_entry(name, source, replaces, launches, rows, library_rows=None, cases=None):
+    """One kernel's line of the report, its numbers summed over ``rows``;
+    ``library_ms`` summed over ``library_rows`` (None: no library call
+    computes the function)."""
     bytes_ms = sum(r["bytes_ms"] for r in rows)
     ops_ms = sum(r["ops_ms"] for r in rows)
     return dict(
@@ -724,7 +960,8 @@ def kernel_entry(name, source, replaces, launches, rows):
         ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None, cases=rows,
+        library_ms=None if library_rows is None else sum(r["library_ms"] for r in library_rows),
+        cases=rows if cases is None else cases,
     )
 
 
@@ -785,9 +1022,31 @@ def main(argv=None) -> int:
     phase("small-input training")
     small_training(device)
 
+    phase("trainer (paper scale)")
+    step_ms = train_summary[str((1, 1))]["step_ms_median_after_first"]
+    trainer_counts, trainer_summary, state = trainer_phase(graph, splits, dg, model, args.seed,
+                                                           step_ms)
+
+    phase("one-pass Adam against plain versions")
+    adam_rows = check_adam(device)
+
+    phase("trainer with pallas_adam (paper scale)")
+    pallas_counts, pallas_summary = pallas_trainer(graph, splits, dg, model, args.seed, state)
+    del state
+    log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    phase("dummy config on the card")
+    gate = dummy_gate(device, args.seed)
+
     phase("done")
-    launches = {name: counts[name] + train_counts[name] for name in train_counts}
-    log(f"launches on the main path: serve {counts}, train {train_counts}")
+    launches = {name: counts[name] + train_counts[name] + trainer_counts[name]
+                + pallas_counts[name] for name in train_counts}
+    log(f"launches on the main path: serve {counts}, train {train_counts}, trainer "
+        f"{trainer_counts}, trainer with pallas_adam {pallas_counts}")
+    # The one-pass Adam's line: the leaf the main path gives it, then the
+    # other f32 cases (K7's contract); P6's bf16 case is listed beside them
+    # (no library call takes bf16 moments with f32 parameters).
+    k7_rows = [r for r in adam_rows if r["dtype"] == "float32"]
     report = {"kernels": [
         kernel_entry("paired_fwd", "decagon_tpu_torch/csrc/paired_fwd.cu",
                      "decagon_tpu/ops/spmm_paired.py:82", launches["paired_fwd"],
@@ -798,7 +1057,11 @@ def main(argv=None) -> int:
         kernel_entry("sddmm", "decagon_tpu_torch/csrc/sddmm.cu",
                      "decagon_tpu/ops/sddmm_pallas.py:93", launches["sddmm"],
                      sddmm_rows),
-    ], "train": train_summary}
+        kernel_entry("adam", "decagon_tpu_torch/csrc/adam.cu",
+                     "decagon_tpu/ops/optim.py:133", launches["adam"], k7_rows,
+                     library_rows=k7_rows, cases=adam_rows),
+    ], "train": train_summary, "trainer": trainer_summary, "pallas_adam": pallas_summary,
+        "dummy_gate": gate}
     print(json.dumps(report))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -1,15 +1,20 @@
-"""Deterministic synthetic graphs shaped like the polypharmacy dataset.
+"""Deterministic synthetic graphs: the reference's dummy config and graphs
+shaped like the polypharmacy dataset.
 
-Port of ``decagon_tpu/graph/synthetic.py::make_polypharmacy_like_graph``
-(``make_synthetic_graph`` comes with a later slice).  The reference builds
-its PPI graph with ``networkx.barabasi_albert_graph``; networkx is not a
-dependency of the port, so ``barabasi_albert_adjacency`` replays the same
-algorithm with the standard library and returns the same adjacency, edge
-for edge (``tests/test_torch_graph.py`` holds it against networkx).
+Port of ``decagon_tpu/graph/synthetic.py::make_synthetic_graph`` and
+``make_polypharmacy_like_graph``.  The JAX package builds their gene
+networks with ``networkx.planted_partition_graph`` and
+``networkx.barabasi_albert_graph``; networkx is not a dependency of the
+port, so ``planted_partition_adjacency`` and ``barabasi_albert_adjacency``
+replay the same algorithms with the standard library and return the same
+adjacencies, edge for edge (``tests/test_torch_graph.py`` holds them
+against networkx).
 """
 
 from __future__ import annotations
 
+import itertools
+import math
 import random
 from typing import Optional
 
@@ -50,6 +55,131 @@ def barabasi_albert_adjacency(n: int, m: int, seed: int) -> sp.csr_matrix:
     ).tocsr()
     adj.sum_duplicates()
     return adj
+
+
+def planted_partition_adjacency(
+    l: int, k: int, p_in: float, p_out: float, seed: int
+) -> sp.csr_matrix:
+    """0/1 adjacency of ``networkx.planted_partition_graph(l, k, p_in,
+    p_out, seed=seed)``, rows in the graph's node order (what
+    ``networkx.adjacency_matrix`` returns).
+
+    networkx runs ``stochastic_block_model(sparse=True)`` over ``l`` blocks
+    of ``k`` nodes with ``random.Random(seed)``, and so does this: blocks
+    are Python sets of consecutive labels (their iteration order is the
+    graph's node order and the order of the candidate pairs); block pairs
+    come in ``combinations_with_replacement`` order; a diagonal block draws
+    one uniform per pair, then, because the ``sparse`` branch runs after
+    it on the spent iterator, one more uniform that selects nothing; an
+    off-diagonal block skips ``floor(log(u) / log(1 - p))`` pairs of its
+    ``product`` between edges.
+    """
+    for name, p in (("p_in", p_in), ("p_out", p_out)):
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"{name} must be in [0, 1], got {p}")
+    rng = random.Random(seed)
+    nodes = range(l * k)
+    parts = [set(nodes[b * k:(b + 1) * k]) for b in range(l)]
+    order = [node for part in parts for node in part]
+    position = {node: i for i, node in enumerate(order)}
+    src, dst = [], []
+    for i, j in itertools.combinations_with_replacement(range(l), 2):
+        p = p_in if i == j else p_out
+        if i == j:
+            pairs = itertools.combinations(parts[i], 2)
+            for a, b in pairs:
+                if rng.random() < p:
+                    src.append(a)
+                    dst.append(b)
+        else:
+            pairs = itertools.product(parts[i], parts[j])
+        if p == 1:
+            for a, b in pairs:
+                src.append(a)
+                dst.append(b)
+        elif p > 0:
+            log_q = math.log(1 - p)
+            while True:
+                skip = math.floor(math.log(rng.random()) / log_q)
+                next(itertools.islice(pairs, skip, skip), None)
+                edge = next(pairs, None)
+                if edge is None:
+                    break
+                src.append(edge[0])
+                dst.append(edge[1])
+    n = l * k
+    rows = np.array([position[a] for a in src + dst], dtype=np.int64)
+    cols = np.array([position[b] for b in dst + src], dtype=np.int64)
+    adj = sp.coo_matrix(
+        (np.ones(rows.size, np.int64), (rows, cols)), shape=(n, n)
+    ).tocsr()
+    adj.sum_duplicates()
+    return adj
+
+
+def make_synthetic_graph(
+    n_genes: int = 500,
+    n_drugs: int = 400,
+    n_drugdrug_types: int = 3,
+    seed: int = 0,
+    partition_seed: int = 42,
+    with_transposes: bool = True,
+    drug_decoder: str = "dedicom",
+    other_decoder: str = "bilinear",
+) -> RelationGraph:
+    """The reference's toy data (legacy ``main.py:134-218``): a planted-
+    partition gene network (``n_genes // 10`` groups of 10, p_in 0.2,
+    p_out 0.05), gene-drug targets ``10 * randn > 15``, and drug-drug
+    relation ``i`` where two drugs share exactly ``i + 4`` targets (thin
+    relations topped up with seeded random pairs).  Identity features;
+    DEDICOM on drug-drug, bilinear elsewhere."""
+    rng = np.random.RandomState(seed)
+
+    gene_adj = planted_partition_adjacency(
+        max(1, n_genes // 10), 10, 0.2, 0.05, seed=partition_seed
+    )
+    n_genes = gene_adj.shape[0]
+    ppi = Relation.from_scipy(gene_adj, name="ppi")
+
+    gene_drug_dense = (10 * rng.randn(n_genes, n_drugs) > 15).astype(np.int8)
+    gene_drug = Relation.from_dense(gene_drug_dense, name="gene_drug")
+
+    overlap = gene_drug_dense.astype(np.int64).T @ gene_drug_dense.astype(np.int64)
+    drug_rels = []
+    min_edges = max(8, 4 * (n_drugs // 10))
+    for i in range(n_drugdrug_types):
+        hits = (overlap == i + 4)
+        np.fill_diagonal(hits, False)
+        sym = hits | hits.T
+        while int(sym.sum()) < 2 * min_edges:
+            a, b = rng.randint(0, n_drugs, size=2)
+            if a != b:
+                sym[a, b] = sym[b, a] = True
+        drug_rels.append(Relation.from_dense(sym, name=f"dd_{i}"))
+
+    relations = {
+        (0, 0): [ppi],
+        (0, 1): [gene_drug],
+        (1, 1): drug_rels,
+    }
+    graph = RelationGraph(
+        node_type_names=("gene", "drug"),
+        num_nodes=(n_genes, n_drugs),
+        relations=relations,
+        features={
+            0: NodeFeatures.identity(n_genes),
+            1: NodeFeatures.identity(n_drugs),
+        },
+        decoders={
+            (0, 0): other_decoder,
+            (0, 1): other_decoder,
+            (1, 0): other_decoder,
+            (1, 1): drug_decoder,
+        },
+    )
+    if with_transposes:
+        graph = graph.with_transposes()
+    return graph
 
 
 def _sample_unique_pairs(

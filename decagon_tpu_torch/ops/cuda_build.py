@@ -27,12 +27,12 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("paired_fwd.cu", "paired_bwd.cu", "sddmm.cu")
+SOURCES = ("paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches per wrapper since the last ``reset_launches``.
-LAUNCHES: Dict[str, int] = {"paired_fwd": 0, "paired_bwd": 0, "sddmm": 0}
+LAUNCHES: Dict[str, int] = {"paired_fwd": 0, "paired_bwd": 0, "sddmm": 0, "adam": 0}
 # What the last build did: seconds, and ptxas' per-kernel report.
 BUILD_INFO: Dict[str, object] = {}
 
@@ -42,6 +42,7 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 
 def reset_launches() -> None:
@@ -135,6 +136,10 @@ def library() -> ctypes.CDLL:
             lib.dt_sddmm.restype = _I
             lib.dt_sddmm.argtypes = [
                 _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P,
+            ]
+            lib.dt_adam.restype = _I
+            lib.dt_adam.argtypes = [
+                _P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P,
             ]
             lib.dt_error_string.restype = ctypes.c_char_p
             lib.dt_error_string.argtypes = [_I]

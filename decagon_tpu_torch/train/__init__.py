@@ -1,1 +1,1 @@
-"""Evaluation (the serving path); training arrives with a later slice."""
+"""Training and evaluation: steps, the Trainer, checkpoints, the metrics log."""

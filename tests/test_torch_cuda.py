@@ -14,7 +14,9 @@ output.  A bf16 backward output may then round to the neighbouring bf16
 value, one bf16 ulp (at most 2^-7 of the value), so it is held to
 ``2^-7 |want| + 1e-4 max|want|`` elementwise.  Scorer: f32 throughout,
 order only: ``rtol=1e-5`` with an absolute floor of 1e-5 of the largest
-score.
+score.  One-pass Adam: the kernel rounds every operation on its own in the
+plain chain's order, so m, v and p must equal ``adam_onepass_ref``'s bit
+for bit.
 """
 
 import numpy as np
@@ -31,6 +33,7 @@ from decagon_tpu_torch.ops.spmm_paired import (
     paired_ref,
     paired_ref_ds,
 )
+from decagon_tpu_torch.ops.optim import adam_onepass, adam_onepass_ref
 from decagon_tpu_torch.ops.sddmm_pallas import sddmm_edges, sddmm_plain
 
 pytestmark = pytest.mark.cuda
@@ -196,3 +199,59 @@ def test_sddmm_kernel_scores_nan_out_of_range(cuda_device):
     got = _score(sddmm_edges, w, "dedicom").cpu().numpy()
     assert np.isnan(got[[2, 4]]).all()
     assert np.isfinite(np.delete(got, [2, 4])).all()
+
+
+ADAM = dict(s1=1.0 / (1 - 0.9 ** 3), s2=1.0 / (1 - 0.999 ** 3), lr=1e-3, b1=0.9, b2=0.999,
+            eps=1e-8)
+
+
+def _adam_world(n, dtype, device, offset=0, seed=0):
+    """g, m, v (``dtype``) and f32 p of ``n`` elements, each a view that
+    starts ``offset`` elements into its storage."""
+    g = torch.Generator().manual_seed(seed + n)
+    mk = lambda scale, dt: (scale * torch.randn(n + offset, generator=g)).to(dt)  # noqa: E731
+    t = [mk(1.0, dtype), mk(0.1, dtype), mk(0.01, dtype).abs(), mk(1.0, torch.float32)]
+    return [x.to(device)[offset:] for x in t]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,offset", [(1, 0), (3, 0), (4, 0), (1001, 0), (4097, 1),
+                                      (65536, 2), (1 << 22, 0), ((1 << 20) + 5, 3)])
+def test_adam_kernel_matches_plain_bitwise(cuda_device, dtype, n, offset):
+    """Lengths that are and are not multiples of the vector width, views
+    that start off 16-byte alignment, one element to 2^22; in place."""
+    got = _adam_world(n, dtype, cuda_device, offset)
+    want = [x.clone() for x in got]
+    ptrs = [x.data_ptr() for x in got]
+    before = cuda_build.LAUNCHES["adam"]
+    adam_onepass(*got, **ADAM)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["adam"] == before + 1
+    adam_onepass_ref(*want, **ADAM)
+    assert [x.data_ptr() for x in got] == ptrs
+    for name, a, b in zip("gmvp", got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("block_threads", [64, 128, 256])
+def test_adam_kernel_block_sizes_agree(cuda_device, block_threads):
+    got = _adam_world(3 * 4096 + 7, torch.float32, cuda_device, seed=1)
+    want = [x.clone() for x in got]
+    adam_onepass(*got, **ADAM, block_threads=block_threads)
+    adam_onepass_ref(*want, **ADAM)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_adam_kernel_rejects_what_it_does_not_take(cuda_device):
+    g, m, v, p = _adam_world(64, torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        adam_onepass(g.half(), m.half(), v.half(), p, **ADAM)
+    with pytest.raises(TypeError):
+        adam_onepass(g, m.to(torch.bfloat16), v, p, **ADAM)
+    with pytest.raises(TypeError):
+        adam_onepass(g, m, v, p.double(), **ADAM)
+    with pytest.raises(ValueError):
+        adam_onepass(g[::2], m[::2], v[::2], p[::2], **ADAM)
+    with pytest.raises(ValueError):
+        adam_onepass(g[:32], m, v, p, **ADAM)

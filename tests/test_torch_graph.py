@@ -1,5 +1,6 @@
-"""Graph layer of the port against the JAX package: the Barabasi-Albert
-replica, the polypharmacy-like graph, the split and the device graph.
+"""Graph layer of the port against the JAX package: the Barabasi-Albert and
+planted-partition replicas, the dummy and polypharmacy-like graphs, the
+split and the device graph.
 
 Inputs are made from seeds; the host layers must agree exactly, and the
 device graphs over the region the port does not pad.
@@ -12,12 +13,15 @@ import pytest
 from decagon_tpu.graph.device import build_device_graph as jax_build
 from decagon_tpu.graph.split import split_graph as jax_split
 from decagon_tpu.graph.synthetic import make_polypharmacy_like_graph as jax_graph
+from decagon_tpu.graph.synthetic import make_synthetic_graph as jax_synthetic
 from decagon_tpu_torch.graph.container import Relation
 from decagon_tpu_torch.graph.device import build_device_graph
 from decagon_tpu_torch.graph.split import split_graph
 from decagon_tpu_torch.graph.synthetic import (
     barabasi_albert_adjacency,
     make_polypharmacy_like_graph,
+    make_synthetic_graph,
+    planted_partition_adjacency,
 )
 
 SMALL = dict(
@@ -47,8 +51,23 @@ def test_barabasi_albert_matches_networkx(n, m, seed):
     np.testing.assert_array_equal(got.cols, want.cols)
 
 
-def test_polypharmacy_graph_matches_reference(both):
-    g_ref, g, _, _ = both
+@pytest.mark.parametrize(
+    "l,k,p_in,p_out,seed", [(50, 10, 0.2, 0.05, 42), (7, 5, 0.5, 0.1, 3), (4, 40, 1.0, 0.3, 5)]
+)
+def test_planted_partition_matches_networkx(l, k, p_in, p_out, seed):
+    """Edge for edge, in networkx's node order: 50 blocks of 10 (the dummy
+    graph's; blocks past label 32 iterate out of label order), small
+    blocks, and p_in = 1 (no draws inside a block)."""
+    want = Relation.from_scipy(
+        nx.adjacency_matrix(nx.planted_partition_graph(l, k, p_in, p_out, seed=seed))
+    )
+    got = Relation.from_scipy(planted_partition_adjacency(l, k, p_in, p_out, seed))
+    assert got.shape == want.shape == (l * k, l * k) and got.rows.size > 0
+    np.testing.assert_array_equal(got.rows, want.rows)
+    np.testing.assert_array_equal(got.cols, want.cols)
+
+
+def _same_graph(g_ref, g):
     assert g.num_nodes == g_ref.num_nodes
     assert g.decoders == g_ref.decoders
     assert sorted(g.relations) == sorted(g_ref.relations)
@@ -60,6 +79,22 @@ def test_polypharmacy_graph_matches_reference(both):
             assert (got.shape, got.name, got.transpose_of) == (
                 want.shape, want.name, want.transpose_of
             )
+
+
+def test_polypharmacy_graph_matches_reference(both):
+    g_ref, g, _, _ = both
+    _same_graph(g_ref, g)
+
+
+@pytest.mark.parametrize("n_genes,n_drugs,n_types", [(500, 400, 3), (120, 60, 2)])
+def test_synthetic_graph_matches_reference(n_genes, n_drugs, n_types):
+    """The dummy config (500 genes, 400 drugs, 3 side effects) and a small
+    one, relation for relation."""
+    g_ref = jax_synthetic(n_genes=n_genes, n_drugs=n_drugs, n_drugdrug_types=n_types, seed=0)
+    g = make_synthetic_graph(n_genes=n_genes, n_drugs=n_drugs, n_drugdrug_types=n_types, seed=0)
+    _same_graph(g_ref, g)
+    for t in (0, 1):
+        assert g.features[t].nnz == g_ref.features[t].nnz
 
 
 def test_split_matches_reference(both):

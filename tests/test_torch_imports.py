@@ -38,7 +38,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for module in ("train.evaluate", "ops.sddmm_pallas", "train.step", "ops.optim",
-                   "train.negatives", "models.losses"):
+                   "train.negatives", "models.losses", "train.sampler", "train.trainer",
+                   "train.checkpoint", "train.logger", "bench",
+                   "scripts.probe_adam_onepass", "scripts.quality_sweep"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]
@@ -72,7 +74,7 @@ def test_port_tree_holds_no_binaries_or_large_files():
         assert f.stat().st_size <= 1 << 20, f
 
 
-@pytest.mark.parametrize("name", ["optax", "networkx", "jax"])
+@pytest.mark.parametrize("name", ["optax", "networkx", "jax", "orbax", "decagon_tpu"])
 def test_port_sources_name_no_forbidden_package(name):
     """No source line of the port or of ``chip_smoke.py`` imports the JAX
     package's dependencies, even behind a branch the probe above does not
@@ -86,7 +88,7 @@ def test_port_sources_name_no_forbidden_package(name):
         assert not pattern.search(f.read_text()), f
 
 
-@pytest.mark.parametrize("source", ["paired_fwd.cu", "paired_bwd.cu", "sddmm.cu"])
+@pytest.mark.parametrize("source", ["paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu"])
 def test_cuda_sources_are_plain_c_interface(source):
     """The kernels build with nvcc into a ctypes library: no PyTorch
     headers (their build takes minutes) and every entry point extern C."""
