@@ -11,16 +11,22 @@ Ports the parts of the JAX package's ``bench.py`` that the port runs:
 2. ``full_paired_int8`` (the headline): the paper-scale polypharmacy-like
    graph (19,081 proteins, 645 drugs, 963 side effects, ~12.1M adjacency
    edges) through the paired int8 mask kernels, the ``Trainer`` in chunks
-   of 320 steps.
+   of 320 steps;
+3. ``full_pallas_bf16`` and ``full_pallas_f32``: the same graph (its CSR
+   layouts built beside the paired masks) through the sparse kernel K6,
+   ``spmm_impl="pallas"`` at ``spmm_precision`` "default" and "highest",
+   the ``Trainer`` in chunks of 20 from fresh seeded weights (the paired
+   config's weights have another layout), each with its ratio to the
+   headline's step time (``vs_headline``).
 
-Each config times its chunks (6 toy, 3 paper-scale) after one warm-up
-chunk (host clock, synchronized after each chunk) and reports edges/s
+Each config times its chunks (6 toy, 3 paired, 5 and 3 sparse) after one
+warm-up chunk (host clock, synchronized after each chunk) and reports edges/s
 (adjacency nonzeros aggregated per second of train step), min and median
 ms per step and the effective TFLOP/s of the aggregation; the paired
 config adds its HBM
 share: the half mask stacks read four times a step (two layers, forward
-and backward) over 3.35 TB/s (H100 SXM).  The JAX package's dense,
-factored and Pallas trainers are not ported here.
+and backward) over 3.35 TB/s (H100 SXM).  The JAX package's dense and
+factored trainers are not ported here.
 
 Prints one JSON line: ``metric``, ``value``, ``unit``, ``vs_baseline``,
 ``hbm_roofline_fraction``, ``configs``, and ``torch``, ``device`` (the
@@ -47,6 +53,9 @@ REFERENCE_ITER_LATENCY_S = 0.0055  # decagon_iteration_results_0.csv Latency
 HBM_BYTES_S = 3.35e12  # H100 SXM
 TOY_CHUNK, TOY_WINDOWS = 100, 6
 CHUNK, WINDOWS = 320, 3
+# The sparse configs: chunk, and timed windows per spmm_precision.
+PALLAS_CHUNK = 20
+PALLAS_CONFIGS = (("full_pallas_bf16", "default", 5), ("full_pallas_f32", "highest", 3))
 PAPER = dict(
     n_proteins=19081, n_drugs=645, n_side_effects=963, min_edges_per_relation=500,
     total_drugdrug_edges=4_651_131, ppi_attachment=37, seed=7,
@@ -123,6 +132,8 @@ def bench_toy(device) -> dict:
 
 
 def bench_fullscale(device) -> dict:
+    """The paper-scale configs: ``full_paired_int8`` (the headline) and the
+    sparse ``full_pallas_*``, on one device graph holding both layouts."""
     from decagon_tpu_torch.graph.device import build_device_graph
     from decagon_tpu_torch.graph.split import split_graph
     from decagon_tpu_torch.graph.synthetic import make_polypharmacy_like_graph
@@ -135,7 +146,8 @@ def bench_fullscale(device) -> dict:
     splits = split_graph(graph, val_frac=0.05, test_frac=0.05, seed=1)
     dg = build_device_graph(
         graph, splits, densify_max_cells=1_000_000_000,
-        dense_factored=True, dense_paired=True, device=device,
+        dense_factored=True, dense_paired=True, tile_for_pallas=True,
+        tile_even_if_dense=True, build_fused=False, device=device,
     )
     hard_sync(dg.neg_cdf)
     build_s = time.perf_counter() - t0
@@ -147,13 +159,28 @@ def bench_fullscale(device) -> dict:
     trainer = Trainer(model, graph, splits, dg, cfg, seed=0)
     pair_bytes = sum(a.pair_mask.numel() for a in dg.adj.values() if a.pair_mask is not None)
     t = steady_state_ms(trainer, CHUNK, WINDOWS)
-    out = config_metrics(graph_nnz(dg), t)
+    nnz = graph_nnz(dg)
+    out = config_metrics(nnz, t)
     out["pair_mask_gb"] = pair_bytes / 1e9
     # The half mask stacks, read four times a step (two layers, forward
     # and backward), against the card's memory rate.
     out["hbm_util"] = 4 * pair_bytes / (t["min_ms"] / 1e3) / HBM_BYTES_S
     out["host_build_s"] = build_s
-    return out
+    configs = {"full_paired_int8": out}
+    del trainer
+    for tag, precision, windows in PALLAS_CONFIGS:
+        _progress(tag)
+        model = DecagonModel(ModelConfig(
+            hidden1=64, hidden2=32, dropout=0.1, spmm_impl="pallas", spmm_precision=precision,
+        ), dg)
+        trainer = Trainer(model, graph, splits, dg,
+                          TrainConfig(batch_size=512, learning_rate=1e-3, scan_chunk=PALLAS_CHUNK),
+                          seed=0)
+        tp = steady_state_ms(trainer, PALLAS_CHUNK, windows)
+        configs[tag] = config_metrics(nnz, tp)
+        configs[tag]["vs_headline"] = tp["min_ms"] / t["min_ms"]
+        del trainer
+    return configs
 
 
 def _device_name(device) -> str:
@@ -172,8 +199,9 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     _progress("toy config")
     toy = bench_toy(device)
-    _progress("paper-scale config")
-    headline = bench_fullscale(device)
+    _progress("paper-scale configs")
+    full = bench_fullscale(device)
+    headline = full["full_paired_int8"]
     _progress("done")
     print(json.dumps({
         "metric": "fullscale_train_step_edges_per_s_per_chip",
@@ -181,7 +209,7 @@ def main(argv=None) -> int:
         "unit": "edges/s",
         "vs_baseline": REFERENCE_ITER_LATENCY_S * 1e3 / toy["ms_per_step_min"],
         "hbm_roofline_fraction": headline["hbm_util"],
-        "configs": {"toy_dense": toy, "full_paired_int8": headline},
+        "configs": {"toy_dense": toy, **full},
         "torch": torch.__version__,
         "device": _device_name(device),
         "backend": device.type,

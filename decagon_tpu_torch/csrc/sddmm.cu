@@ -10,9 +10,16 @@
 //                                                  rel [n_k, d], G [d, d]
 //   bilinear      sum_b (sum_a zr[a] R[k,a,b]) zc[b]           R [n_k, d, d]
 //
-// all in f32 (the reference's "highest" precision).  The TPU kernel
-// gathers rows through one-hot matrix products because its vector unit
-// cannot gather; here each warp reads its edge's rows directly.
+// in one of the reference's two precisions:
+//   "highest" (K5): every table f32;
+//   "default" (K5-bf16): every table bf16 (the wrapper casts them, as the
+//   TPU kernel casts its tables to its compute dtype), read exactly into
+//   f32, f32 sums; DEDICOM rounds zr * rel[k] to bf16 before the product
+//   with G, as the reference does.  A product of two bf16 values is exact
+//   in f32, so the gathers and the bilinear and distmult products lose
+//   nothing beyond the tables' rounding.
+// The TPU kernel gathers rows through one-hot matrix products because its
+// vector unit cannot gather; here each warp reads its edge's rows directly.
 //
 // Bound on this card: operations.  Each edge moves 16 bytes of indices
 // and score, while dedicom and bilinear spend 2*d^2 flops on the d x d
@@ -25,6 +32,7 @@
 // the score.  An edge with an index outside its table scores NaN instead
 // of reading out of bounds.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -36,10 +44,17 @@ enum Mode { INNERPRODUCT = 0, DISTMULT = 1, DEDICOM = 2, BILINEAR = 3 };
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 256;
 
-template <int NQ, int MODE>
+// Element i of a table of f32 (BF16 false) or bf16 stored as uint16, as f32.
+template <bool BF16>
+__device__ __forceinline__ float ld(const void* __restrict__ t, size_t i) {
+  if (BF16) return __uint_as_float(static_cast<uint32_t>(static_cast<const uint16_t*>(t)[i]) << 16);
+  return static_cast<const float*>(t)[i];
+}
+
+template <int NQ, int MODE, bool BF16>
 __global__ void __launch_bounds__(THREADS)
-sddmm_kernel(const float* __restrict__ zr, const float* __restrict__ zc,
-             const float* __restrict__ rel, const float* __restrict__ glb,
+sddmm_kernel(const void* __restrict__ zr, const void* __restrict__ zc,
+             const void* __restrict__ rel, const void* __restrict__ glb,
              const int32_t* __restrict__ ks, const int32_t* __restrict__ rows,
              const int32_t* __restrict__ cols, float* __restrict__ out,
              long long num_edges, int d, int n_r, int n_c, int n_k) {
@@ -59,20 +74,22 @@ sddmm_kernel(const float* __restrict__ zr, const float* __restrict__ zc,
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
       const int a = lane + 32 * q;
-      left[q] = a < d ? zr[static_cast<size_t>(r) * d + a] : 0.f;
-      right[q] = a < d ? zc[static_cast<size_t>(c) * d + a] : 0.f;
+      left[q] = a < d ? ld<BF16>(zr, static_cast<size_t>(r) * d + a) : 0.f;
+      right[q] = a < d ? ld<BF16>(zc, static_cast<size_t>(c) * d + a) : 0.f;
     }
     if (MODE == DISTMULT || MODE == DEDICOM) {
 #pragma unroll
       for (int q = 0; q < NQ; ++q) {
         const int a = lane + 32 * q;
-        const float g = a < d ? rel[static_cast<size_t>(k) * d + a] : 0.f;
+        const float g = a < d ? ld<BF16>(rel, static_cast<size_t>(k) * d + a) : 0.f;
         left[q] *= g;
         if (MODE == DEDICOM) right[q] *= g;
+        if (MODE == DEDICOM && BF16) left[q] = __bfloat162float(__float2bfloat16_rn(left[q]));
       }
     }
     if (MODE == DEDICOM || MODE == BILINEAR) {
-      const float* m = MODE == DEDICOM ? glb : rel + static_cast<size_t>(k) * d * d;
+      const void* m = MODE == DEDICOM ? glb : rel;
+      const size_t m0 = MODE == DEDICOM ? 0 : static_cast<size_t>(k) * d * d;
       float prod[NQ];
 #pragma unroll
       for (int q = 0; q < NQ; ++q) prod[q] = 0.f;
@@ -85,7 +102,7 @@ sddmm_kernel(const float* __restrict__ zr, const float* __restrict__ zc,
 #pragma unroll
           for (int q = 0; q < NQ; ++q) {
             const int b = lane + 32 * q;
-            if (b < d) prod[q] += va * m[static_cast<size_t>(a) * d + b];
+            if (b < d) prod[q] += va * ld<BF16>(m, m0 + static_cast<size_t>(a) * d + b);
           }
         }
       }
@@ -101,13 +118,13 @@ sddmm_kernel(const float* __restrict__ zr, const float* __restrict__ zc,
   }
 }
 
-template <int NQ>
-bool launch_mode(int mode, dim3 grid, cudaStream_t s, const float* zr,
-                 const float* zc, const float* rel, const float* glb,
+template <int NQ, bool BF16>
+bool launch_mode(int mode, dim3 grid, cudaStream_t s, const void* zr,
+                 const void* zc, const void* rel, const void* glb,
                  const int32_t* ks, const int32_t* rows, const int32_t* cols,
                  float* out, long long b, int d, int n_r, int n_c, int n_k) {
 #define DT_LAUNCH(M)                                                      \
-  sddmm_kernel<NQ, M><<<grid, THREADS, 0, s>>>(zr, zc, rel, glb, ks, rows, \
+  sddmm_kernel<NQ, M, BF16><<<grid, THREADS, 0, s>>>(zr, zc, rel, glb, ks, rows, \
                                                cols, out, b, d, n_r, n_c, n_k)
   switch (mode) {
     case INNERPRODUCT: DT_LAUNCH(INNERPRODUCT); return true;
@@ -125,9 +142,10 @@ extern "C" {
 
 // mode: 0 innerproduct, 1 distmult, 2 dedicom, 3 bilinear.  zr [n_r, d],
 // zc [n_c, d], rel [n_k, d] (distmult, dedicom) or [n_k, d, d] (bilinear),
-// glb [d, d] (dedicom); ks/rows/cols int32 [B]; out f32 [B].  Pointers
-// a mode does not read may be null.
-int dt_sddmm(int mode, const void* zr, const void* zc, const void* rel,
+// glb [d, d] (dedicom), all f32 (bf16 = 0) or all bf16 (bf16 = 1);
+// ks/rows/cols int32 [B]; out f32 [B].  Pointers a mode does not read may
+// be null.
+int dt_sddmm(int mode, int bf16, const void* zr, const void* zc, const void* rel,
              const void* glb, const void* ks, const void* rows,
              const void* cols, void* out, long long num_edges, int d, int n_r,
              int n_c, int n_k, void* stream) {
@@ -138,21 +156,23 @@ int dt_sddmm(int mode, const void* zr, const void* zc, const void* rel,
   if (blocks > 132 * 64) blocks = 132 * 64;
   const dim3 grid(static_cast<unsigned>(blocks));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* fzr = static_cast<const float*>(zr);
-  const auto* fzc = static_cast<const float*>(zc);
-  const auto* frel = static_cast<const float*>(rel);
-  const auto* fglb = static_cast<const float*>(glb);
   const auto* iks = static_cast<const int32_t*>(ks);
   const auto* irows = static_cast<const int32_t*>(rows);
   const auto* icols = static_cast<const int32_t*>(cols);
   auto* fout = static_cast<float*>(out);
   bool ok = false;
+#define DT_MODE(NQ)                                                              \
+  ok = bf16 ? launch_mode<NQ, true>(mode, grid, s, zr, zc, rel, glb, iks, irows, \
+                                    icols, fout, num_edges, d, n_r, n_c, n_k)    \
+            : launch_mode<NQ, false>(mode, grid, s, zr, zc, rel, glb, iks, irows,\
+                                     icols, fout, num_edges, d, n_r, n_c, n_k)
   switch ((d + 31) / 32) {
-    case 1: ok = launch_mode<1>(mode, grid, s, fzr, fzc, frel, fglb, iks, irows, icols, fout, num_edges, d, n_r, n_c, n_k); break;
-    case 2: ok = launch_mode<2>(mode, grid, s, fzr, fzc, frel, fglb, iks, irows, icols, fout, num_edges, d, n_r, n_c, n_k); break;
-    case 3: ok = launch_mode<3>(mode, grid, s, fzr, fzc, frel, fglb, iks, irows, icols, fout, num_edges, d, n_r, n_c, n_k); break;
-    case 4: ok = launch_mode<4>(mode, grid, s, fzr, fzc, frel, fglb, iks, irows, icols, fout, num_edges, d, n_r, n_c, n_k); break;
+    case 1: DT_MODE(1); break;
+    case 2: DT_MODE(2); break;
+    case 3: DT_MODE(3); break;
+    case 4: DT_MODE(4); break;
   }
+#undef DT_MODE
   if (!ok) return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

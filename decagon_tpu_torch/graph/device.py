@@ -20,12 +20,24 @@ train adjacencies are flattened into one padded COO stream (``senders``,
   ``pair_scales [K, 4, N]`` f32 holding rows ``(a_e, a_o, b_e, b_o)``:
   the row and column scales of the direct and the transposed half.
 
+* the CSR layouts of the sparse kernel K6 (``tile_for_pallas=True``,
+  ``ops/tiling.py``): ``tiles_fwd`` scatters into the ``n_rows`` output
+  rows from the flat source ``rel * N_j + senders``, ``tiles_bwd`` is its
+  transpose.  Built where the JAX package would hold no dense stack
+  (``K * N_i * N_j > densify_max_cells``), or everywhere with
+  ``tile_even_if_dense``.
+
 ``neg_cdf[etk]`` [K, N_i] f32 holds, per relation, the normalized
 cumulative unigram^0.75 distribution over row nodes for negative sampling.
 
-The port pads nothing but the COO stream: the JAX package pads the pair
+``fused`` (``build_fused=True``, the default, as in the JAX package) is
+every edge type's adjacency as ONE COO stream over global index spaces
+(``FusedAdj``), with its own two CSR layouts when tiling.
+
+The port pads nothing but the COO streams: the JAX package pads the pair
 stacks to its TPU block sizes, which the CUDA kernels do not need.  The
-Pallas tilings and the fused stream come with later slices.
+JAX package's ``tile_block`` (the TPU tile capacity) and its thread pool
+for the native tiler have no counterpart.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ import torch
 from decagon_tpu_torch import DeviceLike, resolve_device
 from decagon_tpu_torch.graph.container import EdgeType, RelationGraph, RelationKey
 from decagon_tpu_torch.graph.split import EdgeSplit
+from decagon_tpu_torch.ops.tiling import CsrEdges, build_tiles
 
 
 def etkey(edge_type: EdgeType) -> str:
@@ -162,6 +175,32 @@ class EdgeTypeAdj:
     col_scale: Optional[torch.Tensor] = None  # f32 [K, n_cols]
     pair_mask: Optional[torch.Tensor] = None  # int8 [K/2, N, N]
     pair_scales: Optional[torch.Tensor] = None  # f32 [K/2, 4, N]
+    tiles_fwd: Optional[CsrEdges] = None  # into [n_rows] from [K * n_cols]
+    tiles_bwd: Optional[CsrEdges] = None  # its transpose
+
+
+@dataclasses.dataclass
+class FusedAdj:
+    """ALL edge types' normalized adjacencies as ONE flat COO stream.
+
+    Source indices address the concatenation of every edge type's
+    flattened per-relation projected stack ``[K_et * N_j(et), H]`` (blocks
+    in sorted edge-type order, offsets in ``layout``); destination indices
+    address the concatenation of per-edge-type output terms ``[N_i(et),
+    H]`` (offsets in ``terms``).  An encoder layer then aggregates every
+    edge type with one gather and one scatter-add (or one K6 launch); each
+    term is still row-normalized on its own.
+    """
+
+    src: torch.Tensor  # int32 [E_pad] into the projected space
+    dst: torch.Tensor  # int32 [E_pad] into the term space
+    vals: torch.Tensor  # float32 [E_pad]; padding entries are 0
+    layout: Tuple[Tuple[str, int, int, int], ...]  # (etkey, p_start, num_rel, n_cols)
+    terms: Tuple[Tuple[str, int, int], ...]  # (etkey, t_start, n_rows)
+    n_p_rows: int
+    n_t_rows: int
+    tiles_fwd: Optional[CsrEdges] = None  # into [n_t_rows] from [n_p_rows]
+    tiles_bwd: Optional[CsrEdges] = None  # its transpose
 
 
 @dataclasses.dataclass
@@ -181,6 +220,7 @@ class DeviceGraph:
     feature_dims: Tuple[int, ...]
     decoders: Tuple[Tuple[str, str], ...]
     device: torch.device
+    fused: Optional[FusedAdj] = None
 
     @property
     def edge_types(self) -> List[EdgeType]:
@@ -202,10 +242,13 @@ def build_device_graph(
     dense_paired: bool = False,
     dense_dtype: torch.dtype = torch.float32,
     device: DeviceLike = None,
+    tile_for_pallas: bool = False,
+    tile_even_if_dense: bool = False,
+    build_fused: bool = True,
 ) -> DeviceGraph:
     """Flatten the normalized train adjacencies and the sampling CDFs onto
     ``device`` (CUDA unless named), with the factored and paired mask
-    stacks on request.
+    stacks, the CSR layouts of K6 and the fused stream on request.
 
     Size gates follow the JAX package: the dense stack (in ``dense_dtype``,
     f32 or bf16) and the factored masks are built when an edge type's
@@ -213,7 +256,10 @@ def build_device_graph(
     (half the cells) at up to twice that.  An edge type that gets the
     paired masks gets no factored ones, and one that gets either gets no
     dense stack: every encoder path reads the mask form there (the JAX
-    package builds all three).
+    package builds all three).  The CSR layouts (``tile_for_pallas``) go
+    where ``K * N_i * N_j > densify_max_cells`` (the JAX package's "no dense
+    stack"), or everywhere with ``tile_even_if_dense``; the fused stream's
+    where any edge type got them, or with ``tile_even_if_dense``.
     """
     dev = resolve_device(device)
     if dense_dtype not in (torch.float32, torch.bfloat16):
@@ -303,8 +349,20 @@ def build_device_graph(
             entry.dense.index_put_(
                 (r_idx, i_idx, j_idx), vals_dev[:real].to(dense_dtype), accumulate=True
             )
+        if tile_for_pallas and (cells > densify_max_cells or tile_even_if_dense):
+            flat_src = rel.astype(np.int64) * n_j + senders.astype(np.int64)
+            entry.tiles_fwd = build_tiles(flat_src, receivers, vals, k_rel * n_j, n_i).to(dev)
+            entry.tiles_bwd = build_tiles(receivers, flat_src, vals, n_i, k_rel * n_j).to(dev)
         adj[etkey((i, j))] = entry
         neg_cdf[etkey((i, j))] = _neg_cdf(degrees[i], k_rel).to(dev)
+
+    fused = None
+    if build_fused:
+        any_tiled = any(a.tiles_fwd is not None for a in adj.values())
+        fused = _fused_adj(
+            graph, splits, edge_pad_multiple, dev,
+            tile=tile_for_pallas and (any_tiled or tile_even_if_dense),
+        )
 
     features: Dict[str, Optional[torch.Tensor]] = {}
     for t in range(len(graph.num_nodes)):
@@ -324,4 +382,47 @@ def build_device_graph(
             for et in sorted(graph.relations)
         ),
         device=dev,
+        fused=fused,
     )
+
+
+def _fused_adj(graph, splits, edge_pad_multiple: int, dev, tile: bool) -> FusedAdj:
+    """The fused all-edge-type stream (``FusedAdj``), padded as the
+    per-edge-type streams are, with its CSR layouts when ``tile``."""
+    layout, terms = [], []
+    p_start = t_start = 0
+    src_parts, dst_parts, val_parts = [], [], []
+    for (i, j), rels in sorted(graph.relations.items()):
+        key = etkey((i, j))
+        n_i, n_j = graph.num_nodes[i], graph.num_nodes[j]
+        layout.append((key, p_start, len(rels), n_j))
+        terms.append((key, t_start, n_i))
+        for k in range(len(rels)):
+            split = splits[(i, j, k)]
+            src_parts.append(p_start + k * n_j + split.adj_cols.astype(np.int64))
+            dst_parts.append(t_start + split.adj_rows.astype(np.int64))
+            val_parts.append(split.adj_vals.astype(np.float32))
+        p_start += len(rels) * n_j
+        t_start += n_i
+    src = np.concatenate(src_parts) if src_parts else np.zeros(0, np.int64)
+    dst = np.concatenate(dst_parts) if dst_parts else np.zeros(0, np.int64)
+    vals = np.concatenate(val_parts) if val_parts else np.zeros(0, np.float32)
+    pad = _round_up(max(1, vals.shape[0]), edge_pad_multiple) - vals.shape[0]
+
+    def stream(a, dtype):
+        a = np.concatenate([a, np.zeros(pad, a.dtype)]) if pad else a
+        return torch.as_tensor(a, dtype=dtype).to(dev)
+
+    fused = FusedAdj(
+        src=stream(src.astype(np.int32), torch.int32),
+        dst=stream(dst.astype(np.int32), torch.int32),
+        vals=stream(vals, torch.float32),
+        layout=tuple(layout),
+        terms=tuple(terms),
+        n_p_rows=p_start,
+        n_t_rows=t_start,
+    )
+    if tile:
+        fused.tiles_fwd = build_tiles(src, dst, vals, p_start, t_start).to(dev)
+        fused.tiles_bwd = build_tiles(dst, src, vals, t_start, p_start).to(dev)
+    return fused

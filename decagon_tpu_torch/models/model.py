@@ -14,6 +14,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from decagon_tpu_torch.graph.container import EdgeType
 from decagon_tpu_torch.graph.device import DeviceGraph, etkey
@@ -21,10 +22,12 @@ from decagon_tpu_torch.models import decoders as dec
 from decagon_tpu_torch.models.encoder import (
     LayerBits,
     check_spmm_impl,
+    draw_layer_bits,
     encode,
     init_encoder_params,
 )
 from decagon_tpu_torch.ops.segment import dropout
+from decagon_tpu_torch.ops.spmm_pallas import PRECISIONS
 
 Params = Dict[str, Dict]
 
@@ -34,14 +37,19 @@ class ModelConfig:
     """Model hyperparameters, with every field of the JAX package's
     ``ModelConfig`` (reference defaults: hidden 64->32, dropout 0.1).
 
-    Ported values: ``spmm_impl`` "auto"/"paired" (paired kernels on CUDA,
-    plain versions on the CPU), "paired_ref" (plain versions everywhere),
-    "xla", "dense" or "dense_factored" (``ops/segment.spmm`` for every edge
-    type); ``sddmm_impl`` "auto" (kernel on CUDA, plain on the CPU) or
-    "jnp" (the plain gather-and-multiply path); ``sddmm_precision``
-    "highest".  ``spmm_precision`` only steers the Pallas SpMM, which is
-    not ported.  Construction raises for the unported ``spmm_impl`` values
-    ("pallas*", "fused*"), for ``remat`` (ROADMAP queue 1, 'Sparse regime') and for a
+    ``spmm_impl``: "auto"/"paired" (paired kernels on CUDA, plain versions
+    on the CPU; on CUDA the other edge types take the factored or dense
+    stack, else the CSR layouts through K6, else the COO stream),
+    "paired_ref" (plain versions everywhere), "xla", "dense",
+    "dense_factored" or "pallas" (``ops/segment.spmm`` for every edge
+    type; "pallas_ref" is K6's plain version on any device), or "fused",
+    "fused_pallas", "fused_pallas_ref" (every edge type at once over the
+    fused stream).  ``spmm_precision`` ("highest" or "default") steers K6.
+    ``sddmm_impl`` "auto" (kernel on CUDA, plain on the CPU) or "jnp" (the
+    plain gather-and-multiply path); ``sddmm_precision`` "highest" (K5) or
+    "default" (K5-bf16).  ``remat`` recomputes the encoder in the backward
+    pass (``torch.utils.checkpoint``).  Construction raises for the JAX
+    package's interpret-mode impls, for an unknown precision and for a
     hidden width below 1; every positive width runs.
     """
 
@@ -57,11 +65,9 @@ class ModelConfig:
 
     def __post_init__(self):
         check_spmm_impl(self.spmm_impl)
-        if self.remat:
-            raise NotImplementedError(
-                "remat (encoder rematerialization) is not ported yet "
-                "(ROADMAP queue 1, 'Sparse regime')"
-            )
+        for name in ("spmm_precision", "sddmm_precision"):
+            if getattr(self, name) not in PRECISIONS:
+                raise ValueError(f"{name} must be one of {PRECISIONS}, not {getattr(self, name)!r}")
         if self.hidden1 < 1 or self.hidden2 < 1:
             raise ValueError(
                 f"hidden widths must be positive, got {self.hidden1}, {self.hidden2}"
@@ -110,15 +116,37 @@ class DecagonModel(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """Node embeddings per type; with ``deterministic=False`` the
         encoder's dropout draws from ``generator`` (or takes
-        ``layer_bits``, see ``models/encoder.encode``)."""
-        return encode(
-            params, graph, generator,
-            dropout_rate=self.config.dropout,
-            deterministic=deterministic,
-            spmm_impl=self.config.spmm_impl,
-            per_relation_dropout_max=self.config.per_relation_dropout_max,
-            layer_bits=layer_bits,
+        ``layer_bits``, see ``models/encoder.encode``).
+
+        With ``remat`` (and ``deterministic=False``) the encoder runs under
+        ``torch.utils.checkpoint``: its activations are not kept but
+        recomputed in the backward pass.  The checkpoint restores only the
+        default generators' states, and the port draws dropout from
+        explicit ones, so the layer bits are drawn here, before the
+        checkpointed region, and passed in: the recomputation sees the
+        same masks (``jax.checkpoint`` needs no such care, its key is a
+        value).  The recomputation launches the forward kernels again."""
+        cfg = self.config
+        kw = dict(
+            dropout_rate=cfg.dropout, spmm_impl=cfg.spmm_impl,
+            per_relation_dropout_max=cfg.per_relation_dropout_max,
+            spmm_precision=cfg.spmm_precision,
         )
+        if not (cfg.remat and not deterministic):
+            return encode(
+                params, graph, generator, deterministic=deterministic,
+                layer_bits=layer_bits, **kw,
+            )
+        if layer_bits is None and generator is not None and cfg.dropout > 0.0:
+            layer_bits = draw_layer_bits(
+                params, graph, generator, cfg.dropout, cfg.spmm_impl,
+                cfg.per_relation_dropout_max,
+            )
+
+        def run(params, layer_bits):
+            return encode(params, graph, None, deterministic=False, layer_bits=layer_bits, **kw)
+
+        return checkpoint(run, params, layer_bits, use_reentrant=False, preserve_rng_state=False)
 
     forward = embeddings
 

@@ -9,7 +9,8 @@ of the sources and flags.  The build runs at first use, never at import.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero status into an error.
-Wrappers count their launches in ``LAUNCHES``.
+Wrappers count their launches in ``LAUNCHES`` (the scorer's f32 and bf16
+variants apart).
 """
 
 from __future__ import annotations
@@ -27,12 +28,15 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu")
+SOURCES = ("paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu", "spmm_tiled.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches per wrapper since the last ``reset_launches``.
-LAUNCHES: Dict[str, int] = {"paired_fwd": 0, "paired_bwd": 0, "sddmm": 0, "adam": 0}
+LAUNCHES: Dict[str, int] = {
+    "paired_fwd": 0, "paired_bwd": 0, "sddmm": 0, "sddmm_bf16": 0, "adam": 0,
+    "spmm_tiled": 0,
+}
 # What the last build did: seconds, and ptxas' per-kernel report.
 BUILD_INFO: Dict[str, object] = {}
 
@@ -135,11 +139,15 @@ def library() -> ctypes.CDLL:
             ]
             lib.dt_sddmm.restype = _I
             lib.dt_sddmm.argtypes = [
-                _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P,
+                _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P,
             ]
             lib.dt_adam.restype = _I
             lib.dt_adam.argtypes = [
                 _P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P,
+            ]
+            lib.dt_spmm_tiled.restype = _I
+            lib.dt_spmm_tiled.argtypes = [
+                _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
             ]
             lib.dt_error_string.restype = ctypes.c_char_p
             lib.dt_error_string.argtypes = [_I]

@@ -10,9 +10,12 @@ is CUDA, ``decagon_tpu_torch/csrc/sddmm.cu``).  For B edges
     dedicom       ((z_r * d_k) @ G) . (z_c * d_k)
     bilinear      z_r R_k z_c^T
 
-in f32 (the reference's ``precision="highest"``; its bf16 ``"default"``
-variant is not ported yet).  ``sddmm_edges`` launches the kernel for CUDA
-tensors and runs ``sddmm_plain`` for CPU tensors.
+in one of the reference's two precisions: ``"highest"`` (f32 throughout)
+or ``"default"`` (every table rounded to bf16, f32 sums, and DEDICOM's
+``z_r * d_k`` rounded to bf16 before the product with ``G``: the cast
+points of ``sddmm_pallas_edges`` at ``precision="default"``).
+``sddmm_edges`` launches the kernel for CUDA tensors and runs
+``sddmm_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from decagon_tpu_torch.ops import cuda_build
 from decagon_tpu_torch.ops.sddmm import sddmm_pairs
 
 SUPPORTED_DECODERS = ("innerproduct", "distmult", "dedicom", "bilinear")
+PRECISIONS = ("highest", "default")
 _MODES = {"innerproduct": 0, "distmult": 1, "dedicom": 2, "bilinear": 3}
 _MAX_DIM = 128
 
@@ -40,9 +44,17 @@ def sddmm_plain(
     glb: Optional[torch.Tensor] = None,
     rel_diag: Optional[torch.Tensor] = None,
     rel_full: Optional[torch.Tensor] = None,
+    precision: str = "highest",
 ) -> torch.Tensor:
     """Plain version: gather the endpoint rows and each edge's relation
-    factors, then ``sddmm_pairs``.  Same shape as ``ks``."""
+    factors (rounded to bf16 at ``"default"``), then ``sddmm_pairs``.  Same
+    shape as ``ks``."""
+    _check_precision(precision)
+    bf16 = precision == "default"
+    if bf16:
+        z_rows, z_cols, glb, rel_diag, rel_full = (
+            None if t is None else _bf16(t) for t in (z_rows, z_cols, glb, rel_diag, rel_full)
+        )
     shape = ks.shape
     ks, rows, cols = (a.reshape(-1).long() for a in (ks, rows, cols))
     zr, zc = z_rows[rows], z_cols[cols]
@@ -50,6 +62,9 @@ def sddmm_plain(
         out = sddmm_pairs(zr, zc)
     elif name == "distmult":
         out = sddmm_pairs(zr, zc, glb_diag=rel_diag[ks])
+    elif name == "dedicom" and bf16:
+        dk = rel_diag[ks]
+        out = torch.sum((_bf16(zr * dk) @ glb) * (zc * dk), dim=-1)
     elif name == "dedicom":
         out = sddmm_pairs(zr, zc, glb=glb, loc_diag=rel_diag[ks])
     elif name == "bilinear":
@@ -57,6 +72,16 @@ def sddmm_plain(
     else:
         raise ValueError(f"unknown decoder {name!r}")
     return out.reshape(shape)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even), as f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"sddmm precision must be one of {PRECISIONS}, not {precision!r}")
 
 
 def _tables(name, glb, rel_diag, rel_full):
@@ -85,21 +110,25 @@ def sddmm_edges(
     glb: Optional[torch.Tensor] = None,
     rel_diag: Optional[torch.Tensor] = None,
     rel_full: Optional[torch.Tensor] = None,
+    precision: str = "highest",
 ) -> torch.Tensor:
     """``[B]`` logits (same shape as ``ks``) for ``(ks, rows, cols)``.
 
     ``z_rows`` / ``z_cols``: [N_r, d] / [N_c, d] f32 tables, d <= 128.
     ``rel_diag``: [K, d] (distmult's ``relation_diag``, dedicom's
     ``local_diag``); ``glb``: [d, d] (dedicom); ``rel_full``: [K, d, d]
-    (bilinear).  Index tensors are int32.  On CUDA an index outside its
-    table gives a NaN score instead of an out-of-bounds read.
+    (bilinear).  Index tensors are int32.  ``precision``: ``"highest"``
+    (K5) or ``"default"`` (K5-bf16: the tables are cast to bf16 here and
+    the kernel reads them so).  On CUDA an index outside its table gives a
+    NaN score instead of an out-of-bounds read.
     """
     if name not in SUPPORTED_DECODERS:
         raise ValueError(f"sddmm supports {SUPPORTED_DECODERS}, not {name!r}")
+    _check_precision(precision)
     if z_rows.device.type == "cpu":
         return sddmm_plain(
             z_rows, z_cols, ks, rows, cols, name=name, glb=glb,
-            rel_diag=rel_diag, rel_full=rel_full,
+            rel_diag=rel_diag, rel_full=rel_full, precision=precision,
         )
     if z_rows.device.type != "cuda":
         raise ValueError(f"sddmm runs on cuda or cpu, not {z_rows.device}")
@@ -131,11 +160,16 @@ def sddmm_edges(
         raise ValueError(f"glb must be [{d}, {d}]")
     if not (ks.shape == rows.shape == cols.shape):
         raise ValueError("ks, rows and cols must have one shape")
+    bf16 = precision == "default"
+    if bf16:
+        z_rows, z_cols, rel, g = (
+            None if t is None else t.to(torch.bfloat16) for t in (z_rows, z_cols, rel, g)
+        )
     lib = cuda_build.library()
     with torch.cuda.device(z_rows.device):
         out = torch.empty(ks.shape, dtype=torch.float32, device=z_rows.device)
         status = lib.dt_sddmm(
-            _MODES[name], z_rows.data_ptr(), z_cols.data_ptr(),
+            _MODES[name], int(bf16), z_rows.data_ptr(), z_cols.data_ptr(),
             None if rel is None else rel.data_ptr(),
             None if g is None else g.data_ptr(),
             ks.data_ptr(), rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
@@ -144,5 +178,5 @@ def sddmm_edges(
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(status, "sddmm")
-    cuda_build.LAUNCHES["sddmm"] += 1
+    cuda_build.LAUNCHES["sddmm_bf16" if bf16 else "sddmm"] += 1
     return out

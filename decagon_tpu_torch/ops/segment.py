@@ -4,11 +4,12 @@ PyTorch).
 Port of ``decagon_tpu/ops/segment.py``.  ``spmm`` aggregates
 ``sum_k A_k @ P_k`` for one edge type from whichever form the device graph
 holds: the padded COO stream (``"xla"``: one gather and one ``index_add_``),
-the dense ``[K, N_i, N_j]`` stack (``"dense"``), or the int8 factored stack
+the dense ``[K, N_i, N_j]`` stack (``"dense"``), the int8 factored stack
 (``"dense_factored"``, with the JAX package's custom backward that reads
-the pre-transposed mask).  All three are plain XLA in the JAX package and
-plain PyTorch here.  The Pallas tiled kernel (K6, ``"pallas"``) is not
-ported yet.
+the pre-transposed mask), or the CSR layouts through the K6 kernel
+(``"pallas"``, ``ops/spmm_pallas.py``; ``"pallas_ref"`` its plain version
+on any device).  The first three are plain XLA in the JAX package and
+plain PyTorch here.
 """
 
 from __future__ import annotations
@@ -17,12 +18,12 @@ from typing import TYPE_CHECKING, Optional
 
 import torch
 
+from decagon_tpu_torch.ops.spmm_pallas import spmm_pallas
+
 if TYPE_CHECKING:  # pragma: no cover
     from decagon_tpu_torch.graph.device import EdgeTypeAdj
 
-SPMM_IMPLS = ("xla", "dense", "dense_factored")
-# The JAX package's Pallas tiled SpMM (K6) and its interpret mode.
-UNPORTED_SPMM_IMPLS = ("pallas", "pallas_interpret")
+SPMM_IMPLS = ("xla", "dense", "dense_factored", "pallas", "pallas_ref")
 
 
 def spmm_segment(
@@ -94,9 +95,18 @@ def spmm_dense_factored(
     return _DenseFactored.apply(p_stack, mask, mask_t, row_scale, col_scale)
 
 
-def spmm(p_stack: torch.Tensor, adj: "EdgeTypeAdj", impl: str = "xla") -> torch.Tensor:
+def spmm(
+    p_stack: torch.Tensor,
+    adj: "EdgeTypeAdj",
+    impl: str = "xla",
+    precision: str = "highest",
+) -> torch.Tensor:
     """Aggregate ``sum_k A_k @ P_k`` for one edge type: ``impl`` is
-    "dense_factored", "dense" or "xla" (the COO stream)."""
+    "dense_factored", "dense", "xla" (the COO stream), "pallas" (K6 over
+    the CSR layouts, at ``precision``) or "pallas_ref" (its plain
+    version).  ``precision`` steers only the last two."""
+    if impl in ("pallas", "pallas_ref"):
+        return spmm_pallas(p_stack, adj, precision, ref=impl == "pallas_ref")
     if impl == "dense_factored":
         if adj.dense_mask is None:
             raise ValueError(
@@ -116,12 +126,6 @@ def spmm(p_stack: torch.Tensor, adj: "EdgeTypeAdj", impl: str = "xla") -> torch.
     if impl == "xla":
         return spmm_segment(
             p_stack, adj.senders, adj.receivers, adj.rel, adj.vals, adj.n_rows
-        )
-    if impl in UNPORTED_SPMM_IMPLS:
-        raise NotImplementedError(
-            f"spmm impl {impl!r} is the Pallas tiled SpMM (K6), not ported "
-            "yet (ROADMAP queue 1, 'Sparse regime'); use 'xla', 'dense' or "
-            "'dense_factored'"
         )
     raise ValueError(f"unknown spmm impl: {impl!r}")
 

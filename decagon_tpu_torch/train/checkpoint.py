@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from decagon_tpu_torch.graph.device import DeviceGraph, etkey
+from decagon_tpu_torch.graph.renumber import restore_external_rows
 
 
 def _map(fn, tree):
@@ -132,12 +133,13 @@ def export_ndarrays(
     out_dir: str,
     relation_names: Optional[List[str]] = None,
     drug_type: int = 1,
+    node_perms: Optional[Dict[int, np.ndarray]] = None,
 ) -> None:
     """Write the offline-predictor artifact set, as the JAX package does.
 
-    ``embeddings.npy``: drug-type embeddings [N_drugs, hidden2] (the
-    JAX package's ``node_perms``, for renumbered graphs, waits for
-    ``graph/renumber.py``, ROADMAP queue 1 "Sparse regime");
+    ``embeddings.npy``: drug-type embeddings [N_drugs, hidden2], in
+    external row order when ``node_perms`` (``{type: old_of_new}`` from
+    ``graph.renumber.renumber_by_degree``) says training ran renumbered;
     ``EmbeddingImportance.npz`` and one ``EmbeddingImportance-<name>.npy``
     per relation: the per-relation diagonal local factors as dense [d, d]
     matrices; ``GlobalRelations.npy``: the DEDICOM global interaction
@@ -147,6 +149,8 @@ def export_ndarrays(
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     emb = _np(embeddings[str(drug_type)])
+    if node_perms is not None and drug_type in node_perms:
+        emb = restore_external_rows(emb, node_perms[drug_type])
     np.save(out / "embeddings.npy", emb, allow_pickle=False)
 
     dd_key = etkey((drug_type, drug_type))

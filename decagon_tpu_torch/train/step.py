@@ -568,8 +568,9 @@ def make_emb_scores(model: DecagonModel, edge_type: EdgeType) -> Callable:
     are scored one after another, which bounds the plain version's
     gathered per-edge factors (bilinear gathers a [C, d, d] stack).
     ``sddmm_impl``: "auto" (the CUDA kernel for CUDA tensors, its plain
-    version for CPU tensors) or "jnp" (the plain gather-and-multiply
-    path of ``models/decoders.py`` on any device).
+    version for CPU tensors, at ``sddmm_precision``) or "jnp" (the plain
+    gather-and-multiply path of ``models/decoders.py`` on any device, in
+    f32, as the JAX package's jnp path ignores the precision).
     """
     name = model.graph_meta.decoder_name(edge_type)
     et_key = etkey(edge_type)
@@ -579,11 +580,7 @@ def make_emb_scores(model: DecagonModel, edge_type: EdgeType) -> Callable:
         raise NotImplementedError(
             f"sddmm_impl {impl!r} is not ported; use 'auto' or 'jnp'"
         )
-    if model.config.sddmm_precision != "highest":
-        raise NotImplementedError(
-            f"sddmm_precision {model.config.sddmm_precision!r} is not ported;"
-            " only 'highest' is"
-        )
+    precision = model.config.sddmm_precision
 
     def one(params, embeddings, ks, rows, cols):
         dp = params["dec"][et_key]
@@ -595,6 +592,7 @@ def make_emb_scores(model: DecagonModel, edge_type: EdgeType) -> Callable:
                 glb=dp.get("global"),
                 rel_diag=dp.get("local_diag", dp.get("relation_diag")),
                 rel_full=dp.get("relation"),
+                precision=precision,
             )
         z_rows = embeddings[row_t][rows.long()]
         z_cols = embeddings[col_t][cols.long()]

@@ -14,7 +14,13 @@ output.  A bf16 backward output may then round to the neighbouring bf16
 value, one bf16 ulp (at most 2^-7 of the value), so it is held to
 ``2^-7 |want| + 1e-4 max|want|`` elementwise.  Scorer: f32 throughout,
 order only: ``rtol=1e-5`` with an absolute floor of 1e-5 of the largest
-score.  One-pass Adam: the kernel rounds every operation on its own in the
+score; at ``"default"`` (K5-bf16) kernel and plain version round the same
+tables to bf16 and the products of bf16 values are exact, so the same
+bound holds.  Tiled SpMM (K6): kernel and plain version apply the same
+roundings and both sum in f32, the kernel in segment order and the plain
+``index_add_`` in its own, so the error is held to 1e-5 of the largest
+output at both precisions; two kernel calls are bitwise equal.  One-pass
+Adam: the kernel rounds every operation on its own in the
 plain chain's order, so m, v and p must equal ``adam_onepass_ref``'s bit
 for bit.
 """
@@ -35,6 +41,8 @@ from decagon_tpu_torch.ops.spmm_paired import (
 )
 from decagon_tpu_torch.ops.optim import adam_onepass, adam_onepass_ref
 from decagon_tpu_torch.ops.sddmm_pallas import sddmm_edges, sddmm_plain
+from decagon_tpu_torch.ops.spmm_pallas import _SpmmTiled, spmm_tiled, spmm_tiled_ref
+from decagon_tpu_torch.ops.tiling import SEGMENT, build_tiles
 
 pytestmark = pytest.mark.cuda
 
@@ -183,12 +191,17 @@ def _score(fn, w, name):
     )
 
 
+@pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("d", [32, 16, 100])
 @pytest.mark.parametrize("name", NAMES)
-def test_sddmm_kernel_matches_plain(cuda_device, name, d):
+def test_sddmm_kernel_matches_plain(cuda_device, name, d, precision):
     w = _world(3, n_r=97, n_c=80, n_rel=23, d=d, b=5000, device=cuda_device)
-    got = _score(sddmm_edges, w, name).cpu().numpy()
-    want = _score(sddmm_plain, w, name).cpu().numpy()
+    counter = "sddmm_bf16" if precision == "default" else "sddmm"
+    before = cuda_build.LAUNCHES[counter]
+    got = _score(lambda *a, **k: sddmm_edges(*a, **k, precision=precision), w, name)
+    assert cuda_build.LAUNCHES[counter] == before + 1
+    want = _score(lambda *a, **k: sddmm_plain(*a, **k, precision=precision), w, name)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
@@ -255,3 +268,80 @@ def test_adam_kernel_rejects_what_it_does_not_take(cuda_device):
         adam_onepass(g[::2], m[::2], v[::2], p[::2], **ADAM)
     with pytest.raises(ValueError):
         adam_onepass(g[:32], m, v, p, **ADAM)
+
+
+def _csr_world(n_src, n_dst, e, h, device, seed=0, long_row=0):
+    """A random edge set (duplicates included, a few zero values that the
+    layout drops, the last tenth of the rows empty), one row of
+    ``long_row`` extra edges, and a source table."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_src, e + long_row)
+    dst = np.concatenate([rng.integers(0, n_dst - n_dst // 10, e), np.full(long_row, n_dst // 2)])
+    vals = rng.normal(size=e + long_row).astype(np.float32)
+    vals[:: 97] = 0.0
+    src[1], dst[1] = src[0], dst[0]
+    p = torch.from_numpy(rng.normal(size=(n_src, h)).astype(np.float32)).to(device)
+    return build_tiles(src, dst, vals, n_src, n_dst).to(device), p
+
+
+def _hold_rel(got, want, tol=1e-5):
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err / want.abs().max().item()
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("h", [1, 32, 64, 100])
+def test_spmm_tiled_kernel_matches_plain(cuda_device, h, precision):
+    """Forward and transposed layouts, rows of one and of many segments
+    (a row of more than 10,000 edges), empty rows, duplicate edges."""
+    tiles, p = _csr_world(3000, 500, 40_000, h, cuda_device, long_row=12_000)
+    assert tiles.num_slots > 0 and int(tiles.row_ptr.diff().eq(0).sum()) >= 50
+    before = cuda_build.LAUNCHES["spmm_tiled"]
+    got = spmm_tiled(p, tiles, precision)
+    again = spmm_tiled(p, tiles, precision)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["spmm_tiled"] == before + 2
+    assert tuple(got.shape) == (500, h) and torch.equal(got, again)
+    _hold_rel(got, spmm_tiled_ref(p, tiles, precision))
+    src, dst = tiles.col.cpu().numpy(), tiles.dst_index().cpu().numpy()
+    t_bwd = build_tiles(dst, src, tiles.val.cpu().numpy(), 500, 3000).to(cuda_device)
+    ct = torch.randn((500, h), generator=torch.Generator().manual_seed(h)).to(cuda_device)
+    _hold_rel(spmm_tiled(ct, t_bwd, precision), spmm_tiled_ref(ct, t_bwd, precision))
+
+
+def test_spmm_tiled_kernel_bf16_input_and_views(cuda_device):
+    """A bf16 table at "highest" is read as f32 values; a view that starts
+    off 8-byte alignment runs with narrower vectors; a layout with no
+    edges gives zeros."""
+    tiles, p = _csr_world(700, 90, 5000, 64, cuda_device, seed=1)
+    pb = p.to(torch.bfloat16)
+    _hold_rel(spmm_tiled(pb, tiles), spmm_tiled_ref(pb, tiles))
+    view = torch.randn(700 * 64 + 1, device=cuda_device)[1:].view(700, 64)
+    assert view.data_ptr() % 8 == 4
+    _hold_rel(spmm_tiled(view, tiles), spmm_tiled_ref(view, tiles))
+    empty = build_tiles(np.zeros(0), np.zeros(0), np.zeros(0), 700, 90).to(cuda_device)
+    assert torch.equal(spmm_tiled(p, empty), torch.zeros((90, 64), device=cuda_device))
+
+
+def test_spmm_tiled_autograd_kernel_matches_plain(cuda_device):
+    tiles, p = _csr_world(800, 300, 20_000, 64, cuda_device, seed=2, long_row=SEGMENT * 3)
+    src, dst = tiles.col.cpu().numpy(), tiles.dst_index().cpu().numpy()
+    t_bwd = build_tiles(dst, src, tiles.val.cpu().numpy(), 300, 800).to(cuda_device)
+    ct = torch.randn((300, 64), device=cuda_device)
+    for precision in ("highest", "default"):
+        grads = []
+        for ref in (False, True):
+            q = p.clone().requires_grad_(True)
+            _SpmmTiled.apply(q, tiles, t_bwd, precision, ref).backward(ct)
+            grads.append(q.grad)
+        _hold_rel(*grads)
+
+
+def test_spmm_tiled_kernel_rejects_what_it_does_not_take(cuda_device):
+    tiles, p = _csr_world(100, 40, 500, 32, cuda_device, seed=3)
+    with pytest.raises(ValueError):
+        spmm_tiled(p[:99], tiles)
+    with pytest.raises(ValueError):
+        spmm_tiled(p, tiles, "fast")
+    with pytest.raises(ValueError):
+        spmm_tiled(p, tiles.to("cpu"))

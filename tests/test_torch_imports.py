@@ -40,7 +40,8 @@ def test_port_and_chip_smoke_import_no_jax():
     for module in ("train.evaluate", "ops.sddmm_pallas", "train.step", "ops.optim",
                    "train.negatives", "models.losses", "train.sampler", "train.trainer",
                    "train.checkpoint", "train.logger", "bench",
-                   "scripts.probe_adam_onepass", "scripts.quality_sweep"):
+                   "scripts.probe_adam_onepass", "scripts.quality_sweep", "graph.renumber",
+                   "ops.tiling", "ops.spmm_pallas"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]
@@ -88,7 +89,9 @@ def test_port_sources_name_no_forbidden_package(name):
         assert not pattern.search(f.read_text()), f
 
 
-@pytest.mark.parametrize("source", ["paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu"])
+@pytest.mark.parametrize(
+    "source", ["paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu", "spmm_tiled.cu"]
+)
 def test_cuda_sources_are_plain_c_interface(source):
     """The kernels build with nvcc into a ctypes library: no PyTorch
     headers (their build takes minutes) and every entry point extern C."""

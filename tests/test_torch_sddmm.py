@@ -6,7 +6,9 @@ the CPU against ``sddmm_pallas_edges`` in interpret mode and against
 
 Tolerance: everything is f32, so only the summation order differs:
 ``rtol=1e-5`` with an absolute floor of 1e-5 of the largest score (a score
-near zero is a difference of larger terms).
+near zero is a difference of larger terms).  At ``precision="default"``
+both sides round the same tables (and DEDICOM's ``z_r * d_k``) to bf16 and
+the products of bf16 values are exact in f32, so the same bound holds.
 """
 
 from types import SimpleNamespace
@@ -102,7 +104,33 @@ def test_sddmm_plain_matches_sddmm_pairs(name):
     )
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_sddmm_plain_default_matches_interpret_kernel(name):
+    """The bf16 ``"default"`` variant: the JAX kernel in interpret mode
+    and the port's plain version (what ``sddmm_edges`` runs for CPU
+    tensors), and both within 1e-2 of the largest ``"highest"`` score."""
+    w = _world(5, n_r=97, n_c=80, n_rel=23, d=32, shape=(1000,))
+    want = sddmm_pallas_edges(
+        jnp.asarray(w["z_r"]), jnp.asarray(w["z_c"]), jnp.asarray(w["ks"]),
+        jnp.asarray(w["rows"]), jnp.asarray(w["cols"]), name=name,
+        glb=jnp.asarray(w["glb"]), rel_diag=jnp.asarray(w["diag"]),
+        rel_full=jnp.asarray(w["full"]), interpret=True, precision="default",
+    )
+    t = {k: torch.from_numpy(v) for k, v in w.items()}
+    got = sddmm_edges(
+        t["z_r"], t["z_c"], t["ks"], t["rows"], t["cols"], name=name,
+        glb=t["glb"], rel_diag=t["diag"], rel_full=t["full"], precision="default",
+    )
+    _close(got.numpy(), want)
+    highest = _port(w, name).numpy()
+    assert np.abs(got.numpy() - highest).max() <= 1e-2 * np.abs(highest).max()
+    assert np.abs(got.numpy() - highest).max() > 0
+
+
 def test_sddmm_rejects_unported_options():
+    """``sddmm_precision="default"`` is ported now: ``make_emb_scores``
+    builds with it; what still raises is an unknown decoder or precision
+    and an unported ``sddmm_impl``."""
     w = _world(2, n_r=10, n_c=10, n_rel=2, d=8, shape=(4,))
     t = {k: torch.from_numpy(v) for k, v in w.items()}
     args = (t["z_r"], t["z_c"], t["ks"], t["rows"], t["cols"])
@@ -110,7 +138,13 @@ def test_sddmm_rejects_unported_options():
         config=ModelConfig(sddmm_precision="default"),
         graph_meta=SimpleNamespace(decoder_name=lambda et: "dedicom"),
     )
+    assert make_emb_scores(model, (1, 1)) is not None
+    model.config = ModelConfig(sddmm_impl="pallas")
     with pytest.raises(NotImplementedError):
         make_emb_scores(model, (1, 1))
     with pytest.raises(ValueError):
         sddmm_edges(*args, name="transe")
+    with pytest.raises(ValueError):
+        sddmm_edges(*args, name="dedicom", glb=t["glb"], rel_diag=t["diag"], precision="fast")
+    with pytest.raises(ValueError):
+        ModelConfig(sddmm_precision="fast")
