@@ -82,7 +82,16 @@ Phases, each announced with the seconds elapsed since start:
 17. small-input sparse checks: on the small graph with every layout,
    "pallas" and "fused_pallas" through K6 against their plain versions,
    layer by layer, at both precisions, and 3 Adam steps with
-   "fused_pallas" at "default".
+   "fused_pallas" at "default";
+18. probes: the ports of the JAX package's paired-kernel probes P1-P5
+   (``decagon_tpu_torch/scripts/probe_*``) at their shapes (the
+   ``[964, 645, 645]`` int8 stack, K = 963, N = 645, H = 64; P1 and P4
+   also at K = 4): each kernel against its plain version (P5 bit for bit,
+   P1-P3 within 1e-5 of the largest output, P4 by the bf16 rule), two
+   calls bitwise equal, P1's and P4's numpy oracles; then, launch
+   counters set to 0, CUDA-event times of each kernel, its plain version
+   and, for P5, ``torch.sum``, with bounds; K1's phase-4 time is printed
+   beside P3's parts.  P6's launches are those of its timing in phase 11.
 
 The second-to-last lines are the kernel report (one JSON object) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``.
@@ -94,11 +103,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
 T0 = time.perf_counter()
+
+from decagon_tpu_torch.scripts.probing import card, cuda_ms  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s,
 # bf16 tensor-core and plain f32 FLOP/s.
@@ -181,29 +191,6 @@ def phase(name: str) -> None:
 
 def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:7.1f}s]   {msg}", flush=True)
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn()`` in ms from CUDA events over ``reps``."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def build_state(kw, device, seed):
@@ -881,10 +868,13 @@ def trainer_phase(graph, splits, dg, model, seed, step_ms):
 
 
 def check_adam(device):
-    """K7 and its bf16 instantiation against the plain chain."""
+    """K7 and its bf16 instantiation against the plain chain.  P6's case
+    (``scripts/probe_adam_onepass.py``'s own) is timed with the launch
+    counters set to 0 just before and read just after: its launches."""
     import torch
 
-    from decagon_tpu_torch.scripts.probe_adam_onepass import make_case, run_case
+    from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.scripts.probe_adam_onepass import make_case, run_case, time_case
 
     cases = [
         ("paper leaf enc1/1,0 [1, 19081, 64] f32", (1, 19081, 64), torch.float32, 0, 20),
@@ -893,15 +883,23 @@ def check_adam(device):
         ("odd length 1,000,003 f32", (1_000_003,), torch.float32, 0, 20),
         ("view at offset 3, 1,048,581 f32", (1_048_581,), torch.float32, 3, 20),
     ]
-    rows = []
+    rows, p6_launches = [], None
     for label, shape, dtype, offset, iters in cases:
-        row = run_case(label, make_case(shape, dtype, device, seed=len(rows), offset=offset),
-                       iters)
+        case = make_case(shape, dtype, device, seed=len(rows), offset=offset)
+        if dtype == torch.bfloat16:
+            row = run_case(label, case, iters, time_it=False)
+            cuda_build.reset_launches()
+            time_case(row, case, iters)
+            p6_launches = cuda_build.LAUNCHES["adam"]
+        else:
+            row = run_case(label, case, iters)
         row["x_bound"] = row["ms"] / max(row["bytes_ms"], row["ops_ms"])
         log(json.dumps(row))
         rows.append(row)
         torch.cuda.empty_cache()
-    return rows
+    if not p6_launches:
+        raise AssertionError("P6's probe path never launched the one-pass Adam")
+    return rows, p6_launches
 
 
 def pallas_trainer(graph, splits, dg, model, seed, state):
@@ -1297,6 +1295,105 @@ def small_sparse(device):
                SPARSE_GRAD_TOL["default"])
 
 
+# Phase 18: the paired-kernel probes, each under its launch counter, with
+# its source and the JAX probe it replaces.
+PROBES = (
+    ("probe_int8_bw", "decagon_tpu_torch/csrc/probe_int8_bw.cu", "scripts/probe_int8_bw.py:35"),
+    ("probe_paired_parts", "decagon_tpu_torch/csrc/probe_paired.cu",
+     "scripts/probe_paired_parts.py:36"),
+    ("probe_paired_orient", "decagon_tpu_torch/csrc/probe_paired.cu",
+     "scripts/probe_paired_orient.py:23"),
+    ("probe_paired_bwd_idioms", "decagon_tpu_torch/csrc/probe_paired.cu",
+     "scripts/probe_paired_bwd_idioms.py:16"),
+    ("probe_paired_idioms", "decagon_tpu_torch/csrc/probe_paired.cu",
+     "scripts/probe_paired_idioms.py:23"),
+)
+PROBE_REPS = 3
+
+
+def probes(device, seed, paired_rows):
+    """P1-P5 at the JAX probes' shapes: each kernel against its plain
+    version (P5 bit for bit, the others by their stated rules) and two
+    calls bitwise equal, P1's and P4's numpy oracles at K = 4; then, with
+    the launch counters set to 0, each probe's timing path (CUDA events:
+    kernel, plain version, ``torch.sum`` for P5), read just after.
+    Returns the launch counts, each probe's rows, and the case that heads
+    each probe's kernel entry (the int8 read at kb 2 beside ``torch.sum``,
+    K1's work at kb 4, the TPU probes' K = 963 shapes)."""
+    import torch
+
+    from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.scripts import (
+        probe_int8_bw as p5,
+        probe_paired_bwd_idioms as p4b,
+        probe_paired_idioms as p1,
+        probe_paired_orient as p2,
+        probe_paired_parts as p3,
+        probing,
+    )
+
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=device).manual_seed(seed)
+    m8 = p5.make_stack(device, seed)  # [964, 645, 645]: P5's stack, P2's and P3's mask
+    m16 = m8.to(torch.bfloat16)
+    p4 = torch.randn((2, p3.K, p3.H, p3.N), generator=g, device=device).to(torch.bfloat16)
+    sc = p2.make_scales(device, seed, kpad=m8.shape[0], n=p3.N)
+    k1 = p3.k1_kb(p3.K, p3.N, p3.H, device)
+    small4 = p4b.numpy_inputs(seed=seed)
+    small1 = p1.numpy_inputs(seed=seed)
+    on = [torch.from_numpy(a).to(device) for a in (small4[0], small4[1].T.copy(), small4[2])]
+    m963 = m8[:p4b.K_FULL]
+    full4 = (m963, torch.randn((p4b.H, p4b.N), generator=g, device=device),
+             torch.rand((p4b.K_FULL, 2, p4b.N), generator=g, device=device))
+    _, pe_aug, po_aug = p1.device_inputs(device, seed=seed + 1)
+    aug4 = (torch.from_numpy(small1[0]).to(device),
+            torch.from_numpy(small1[5]).to(device, torch.bfloat16),
+            torch.from_numpy(small1[6]).to(device, torch.bfloat16))
+    groups = {
+        "probe_int8_bw": p5.variants(m8, m16, p5.padded(m8)),
+        "probe_paired_parts": p3.variants(m8, p4, kbs=(4, 8, k1)),
+        "probe_paired_orient": p2.variants(
+            m8, p4, sc, m16, sweep=(("both", (2, 4, 8)), ("xe_only", (4,)), ("xo_only", (4,)),
+                                    ("small_t", (4, 8)))),
+        "probe_paired_bwd_idioms": [p4b.variant(*on), p4b.variant(*full4)],
+        "probe_paired_idioms": [p1.variant(*aug4, h=p1.H),
+                                p1.variant(m963, pe_aug, po_aug, h=p1.H, kb=1),
+                                p1.variant(m963, pe_aug, po_aug, h=p1.H, kb=k1)],
+    }
+    de, do = p4b.paired_bwd(*on)
+    err4 = p4b.oracle_error(small4[0], small4[1], small4[2], de.float().cpu().numpy(),
+                            do.float().cpu().numpy())
+    err1 = p1.oracle_error(*small1[:5], p1.paired(*aug4, h=p1.H).cpu().numpy())
+    log(f"numpy oracles at K = 4 (bound 2e-2, the JAX probes'): P4 {err4:.3g}, P1 {err1:.3g}")
+    if not (err4 < 2e-2 and err1 < 2e-2):
+        raise AssertionError("a probe misses its numpy oracle")
+    checked = {name: {v.key: probing.check(v) for v in vs} for name, vs in groups.items()}
+    cuda_build.reset_launches()
+    timed = {name: [probing.time_variant(v, PROBE_REPS, plain_reps=1) for v in vs]
+             for name, vs in groups.items()}
+    counts = dict(cuda_build.LAUNCHES)
+    rows = {}
+    for name, vs in timed.items():
+        if counts[name] <= 0:
+            raise AssertionError(f"probe {name} never launched its kernel")
+        rows[name] = [{**checked[name][t["case"]], **t} for t in vs]
+        for r in rows[name]:
+            log(f"{name} {json.dumps(r)}")
+    k1_ms = {r["case"]: r["ms"] for r in paired_rows if r["case"].startswith("(1,1)")}
+    parts = {r["case"]: r["ms"] for r in rows["probe_paired_parts"]}
+    log(f"K1 at (1,1), phase 4: {json.dumps(k1_ms)} (K1's {k1} relations a block; layer 1 "
+        f"scales f32 operands, layer 2 bf16); P3's parts at kb {k1}: "
+        + ", ".join(f"{m} {parts[f'{m}_kb{k1}']:.3f}" for m in p3.MODES)
+        + f"; P5 int8 read: {rows['probe_int8_bw'][0]['ms']:.3f} ms")
+    log(f"probe launches {json.dumps({n: counts[n] for n in groups})}; max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    heads = {"probe_int8_bw": "sum_int8_kb2", "probe_paired_parts": "two_dots_kb4",
+             "probe_paired_orient": "both_i8_kb4",
+             "probe_paired_bwd_idioms": f"paired_bwd_K{p4b.K_FULL}",
+             "probe_paired_idioms": f"paired_K{p1.K_FULL}_kb1"}
+    return counts, rows, heads
+
+
 def kernel_entry(name, source, replaces, launches, rows, library_rows=None, cases=None):
     """One kernel's line of the report, its numbers summed over ``rows``;
     ``library_ms`` summed over ``library_rows`` (None: no library call
@@ -1331,7 +1428,7 @@ def main(argv=None) -> int:
     device = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = nvidia_smi()
+    smi = card()
     log(f"{kind} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     phase("build")
@@ -1377,7 +1474,7 @@ def main(argv=None) -> int:
                                                            step_ms)
 
     phase("one-pass Adam against plain versions")
-    adam_rows = check_adam(device)
+    adam_rows, p6_launches = check_adam(device)
 
     phase("trainer with pallas_adam (paper scale)")
     pallas_counts, pallas_summary = pallas_trainer(graph, splits, dg, model, args.seed, state)
@@ -1406,6 +1503,9 @@ def main(argv=None) -> int:
 
     phase("small-input sparse checks")
     small_sparse(device)
+
+    phase("probes")
+    probe_counts, probe_rows, probe_heads = probes(device, args.seed, paired_rows)
 
     phase("done")
     launches = {name: counts[name] + train_counts[name] + trainer_counts[name]
@@ -1438,10 +1538,21 @@ def main(argv=None) -> int:
         kernel_entry("adam", "decagon_tpu_torch/csrc/adam.cu",
                      "decagon_tpu/ops/optim.py:133", launches["adam"], k7_rows,
                      library_rows=k7_rows, cases=adam_rows),
+        # P6: the bf16 instantiation of K7 at the probe's shape, its
+        # launches those of its own timing path in phase 11.
+        kernel_entry("probe_adam_onepass", "decagon_tpu_torch/csrc/adam.cu",
+                     "scripts/probe_adam_onepass.py:26", p6_launches,
+                     [r for r in adam_rows if r["dtype"] == "bfloat16"]),
+    ] + [
+        kernel_entry(name, source, replaces, probe_counts[name], head,
+                     library_rows=head if name == "probe_int8_bw" else None,
+                     cases=probe_rows[name])
+        for name, source, replaces in PROBES
+        for head in [[r for r in probe_rows[name] if r["case"] == probe_heads[name]]]
     ], "train": train_summary, "trainer": trainer_summary, "pallas_adam": pallas_summary,
         "dummy_gate": gate, "sparse_state": sparse_summary, "sparse_training": sparse_train}
     print(json.dumps(report))
-    print(nvidia_smi())
+    print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

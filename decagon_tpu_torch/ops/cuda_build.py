@@ -10,7 +10,8 @@ of the sources and flags.  The build runs at first use, never at import.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero status into an error.
 Wrappers count their launches in ``LAUNCHES`` (the scorer's f32 and bf16
-variants apart).
+variants apart; each probe of ``decagon_tpu_torch/scripts`` under its
+script's name).
 """
 
 from __future__ import annotations
@@ -28,14 +29,16 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu", "spmm_tiled.cu")
+SOURCES = ("paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu", "spmm_tiled.cu",
+           "probe_int8_bw.cu", "probe_paired.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches per wrapper since the last ``reset_launches``.
 LAUNCHES: Dict[str, int] = {
     "paired_fwd": 0, "paired_bwd": 0, "sddmm": 0, "sddmm_bf16": 0, "adam": 0,
-    "spmm_tiled": 0,
+    "spmm_tiled": 0, "probe_int8_bw": 0, "probe_paired_parts": 0,
+    "probe_paired_orient": 0, "probe_paired_bwd_idioms": 0, "probe_paired_idioms": 0,
 }
 # What the last build did: seconds, and ptxas' per-kernel report.
 BUILD_INFO: Dict[str, object] = {}
@@ -149,6 +152,14 @@ def library() -> ctypes.CDLL:
             lib.dt_spmm_tiled.argtypes = [
                 _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
             ]
+            lib.dt_probe_column_sum.restype = _I
+            lib.dt_probe_column_sum.argtypes = [_P, _I, _L, _I, _I, _I, _P, _P, _P]
+            lib.dt_probe_paired.restype = _I
+            lib.dt_probe_paired.argtypes = [
+                _P, _I, _P, _P, _L, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+            ]
+            lib.dt_probe_paired_bwd.restype = _I
+            lib.dt_probe_paired_bwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
             lib.dt_error_string.restype = ctypes.c_char_p
             lib.dt_error_string.argtypes = [_I]
             _lib = lib

@@ -140,6 +140,15 @@ def _check_fwd_args(p4, mask, scales, ds) -> None:
     _check_common("paired_fwd", p4.device, k, n, mask, scales, ds)
 
 
+def paired_splits(k: int, n: int, h: int, device) -> int:
+    """The number of blocks ``paired_fwd`` splits the K relations over on
+    ``device``: enough (node tile, hidden slice, split) blocks to give
+    every SM four, at most one split a relation."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-n // _ROWS_PER_BLOCK) * -(-h // _COLS_PER_BLOCK)
+    return max(1, min(k, -(-4 * sms // tiles)))
+
+
 def paired_fwd(
     p4: torch.Tensor,
     mask: torch.Tensor,
@@ -165,9 +174,7 @@ def paired_fwd(
     _, k, h, n = p4.shape
     lib = cuda_build.library()
     with torch.cuda.device(p4.device):
-        sms = torch.cuda.get_device_properties(p4.device).multi_processor_count
-        tiles = -(-n // _ROWS_PER_BLOCK) * -(-h // _COLS_PER_BLOCK)
-        splits = max(1, min(k, -(-4 * sms // tiles)))
+        splits = paired_splits(k, n, h, p4.device)
         out = torch.empty((n, h), dtype=torch.float32, device=p4.device)
         partial = out if splits == 1 else torch.empty(
             (splits, n, h), dtype=torch.float32, device=p4.device

@@ -21,7 +21,6 @@ Prints one JSON object as its last line.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 from typing import Dict, List, Optional
 
@@ -29,6 +28,7 @@ import torch
 
 from decagon_tpu_torch.ops import cuda_build
 from decagon_tpu_torch.ops.optim import adam_onepass, adam_onepass_ref
+from decagon_tpu_torch.scripts import probing
 
 SHAPE = (1926, 64, 645)
 ITERS = 20  # timed calls per variant
@@ -167,31 +167,38 @@ def run_case(label: str, case: List[torch.Tensor], iters: int,
         raise AssertionError(f"adam {label}: kernel differs from its plain version "
                              f"(relative error {rel:.3g}, in place {in_place})")
     if time_it:
-        sets = [[copy_at_offset(x) for x in case] for _ in range(rotation(n, g.dtype))]
-        row["copies"] = len(sets)
-        row["plain_ms"] = device_ms(
-            [lambda c=c: adam_onepass_ref(*c, **SCALARS) for c in sets], iters)
-        row["block_ms"] = {
-            b: device_ms([lambda c=c, b=b: adam_onepass(*c, **SCALARS, block_threads=b)
-                          for c in sets], iters)
-            for b in block_sizes
-        }
-        row["ms"] = min(row["block_ms"].values())
-        row["library_ms"] = library_ms(sets, iters)
-        row["gb_s"] = nbytes / row["ms"] / 1e6
-        row["plain_gb_s"] = nbytes / row["plain_ms"] / 1e6
+        time_case(row, case, iters, block_sizes)
+    return row
+
+
+def time_case(row: Dict, case: List[torch.Tensor], iters: int, block_sizes=(256,)) -> Dict:
+    """Adds to ``row`` the device times of the plain chain, the kernel at
+    each block size and the library call, each over ``rotation`` copies
+    of ``case``, and their GB/s."""
+    g, p = case[0], case[3]
+    n = p.numel()
+    nbytes = onepass_bytes(n, g.dtype)
+    sets = [[copy_at_offset(x) for x in case] for _ in range(rotation(n, g.dtype))]
+    row["copies"] = len(sets)
+    row["plain_ms"] = device_ms(
+        [lambda c=c: adam_onepass_ref(*c, **SCALARS) for c in sets], iters)
+    row["block_ms"] = {
+        b: device_ms([lambda c=c, b=b: adam_onepass(*c, **SCALARS, block_threads=b)
+                      for c in sets], iters)
+        for b in block_sizes
+    }
+    row["ms"] = min(row["block_ms"].values())
+    row["library_ms"] = library_ms(sets, iters)
+    row["gb_s"] = nbytes / row["ms"] / 1e6
+    row["plain_gb_s"] = nbytes / row["plain_ms"] / 1e6
     return row
 
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("probe_adam_onepass: no CUDA device; the kernel runs only there", file=sys.stderr)
+    device = probing.require_card("probe_adam_onepass")
+    if device is None:
         return 1
-    device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = probing.card()
     print(f"device: {smi}; torch {torch.__version__}", flush=True)
     cuda_build.library()
     rows = []

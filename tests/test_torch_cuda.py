@@ -22,7 +22,11 @@ roundings and both sum in f32, the kernel in segment order and the plain
 output at both precisions; two kernel calls are bitwise equal.  One-pass
 Adam: the kernel rounds every operation on its own in the
 plain chain's order, so m, v and p must equal ``adam_onepass_ref``'s bit
-for bit.
+for bit.  Probes: P5's column sums are small integers, exact in f32, so
+equal bits; P3, P2 and P1 sum exact bf16 products in f32 in another order
+than their plain versions, so <= 1e-5 of the largest output; P4 rounds
+its outputs to bf16 after such sums, so the paired backward's bf16 rule
+(``2^-7 |want| + 1e-4 max|want|``); two calls of each are bitwise equal.
 """
 
 import numpy as np
@@ -43,6 +47,14 @@ from decagon_tpu_torch.ops.optim import adam_onepass, adam_onepass_ref
 from decagon_tpu_torch.ops.sddmm_pallas import sddmm_edges, sddmm_plain
 from decagon_tpu_torch.ops.spmm_pallas import _SpmmTiled, spmm_tiled, spmm_tiled_ref
 from decagon_tpu_torch.ops.tiling import SEGMENT, build_tiles
+from decagon_tpu_torch.scripts import (
+    probe_int8_bw,
+    probe_paired_bwd_idioms,
+    probe_paired_idioms,
+    probe_paired_orient,
+    probe_paired_parts,
+    probing,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -345,3 +357,157 @@ def test_spmm_tiled_kernel_rejects_what_it_does_not_take(cuda_device):
         spmm_tiled(p, tiles, "fast")
     with pytest.raises(ValueError):
         spmm_tiled(p, tiles.to("cpu"))
+
+
+# The paired-kernel probes (P1-P5): small ragged shapes and the probes' own.
+
+
+def _probe_check(v, counter):
+    """``probing.check`` (two calls bitwise equal, the rule against the
+    plain version) and the launch count of the two kernel calls."""
+    before = cuda_build.LAUNCHES[counter]
+    row = probing.check(v)
+    assert cuda_build.LAUNCHES[counter] == before + 2
+    return row
+
+
+@pytest.mark.parametrize("shape", [(9, 37, 45), (11, 71, 131), (964, 645, 645)],
+                         ids=["ragged", "wide", "probe"])
+def test_probe_int8_bw_kernel_matches_plain(cuda_device, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(shape[1])
+    m8 = (torch.rand(shape, generator=g, device=cuda_device) < 0.2).to(torch.int8)
+    m8[0, 0, :3] = torch.tensor([2, -3, 127], dtype=torch.int8)
+    m8[-1, -1, -2:] = -128
+    pad = (48, 64) if shape[1] < 48 else (80, 144) if shape[1] < 80 else probe_int8_bw.PADDED
+    vs = probe_int8_bw.variants(m8, m8.to(torch.bfloat16), probe_int8_bw.padded(m8, pad),
+                                kbs=(1, 2, 3, 8))
+    # n1 * n2 is odd at every shape, so the blocks' ranges start at every
+    # offset within 16 bytes: the element-by-element head and tail run.
+    assert shape[1] * shape[2] % 2 == 1
+    for v in vs:
+        _probe_check(v, "probe_int8_bw")
+
+
+@pytest.mark.parametrize("kbs", [(1, 4, 8), (21,)], ids=["kb1-4-8", "kb21"])
+@pytest.mark.parametrize("k,n,h", [(9, 70, 16), (13, 130, 64), (5, 45, 24), (963, 645, 64)])
+def test_probe_paired_parts_kernel_matches_plain(cuda_device, k, n, h, kbs):
+    if k == 963 and kbs != (21,):
+        kbs = (4,)
+    mask, p4 = probe_paired_parts.make_inputs(cuda_device, seed=k, k=k, n=n, h=h, kpad=k + 1)
+    mask[0, 0, :2] = 2
+    for v in probe_paired_parts.variants(mask, p4, kbs=kbs):
+        row = _probe_check(v, "probe_paired_parts")
+        assert row["rel_err"] <= probing.REL_TOL
+    assert not probe_paired_parts.paired_parts(mask, p4, "dma_only", kbs[0]).any()
+
+
+@pytest.mark.parametrize("k,n,h", [(9, 70, 16), (13, 130, 64), (5, 45, 24), (963, 645, 64)])
+def test_probe_paired_orient_kernel_matches_plain(cuda_device, k, n, h):
+    mask, p4 = probe_paired_parts.make_inputs(cuda_device, seed=k, k=k, n=n, h=h, kpad=k + 1)
+    mask[0, 0, :2] = 3
+    sc = probe_paired_orient.make_scales(cuda_device, kpad=k + 1, n=n)
+    kbs = (4,) if k == 963 else (1, 2, 8)
+    sweep = [(mode, kbs) for mode in probe_paired_orient.MODES]
+    for v in probe_paired_orient.variants(mask, p4, sc, mask.to(torch.bfloat16), sweep=sweep):
+        _probe_check(v, "probe_paired_orient")
+
+
+def test_probe_paired_orient_small_t_strip_limit(cuda_device):
+    mask, p4 = probe_paired_parts.make_inputs(cuda_device, k=3, n=768, h=64, kpad=3)
+    sc = probe_paired_orient.make_scales(cuda_device, kpad=3, n=768)
+    _probe_check(probe_paired_orient.variants(mask, p4, sc, sweep=[("small_t", (2,))])[0],
+                 "probe_paired_orient")
+    mask, p4 = probe_paired_parts.make_inputs(cuda_device, k=2, n=769, h=8, kpad=2)
+    with pytest.raises(ValueError, match="small_t"):
+        probe_paired_orient.paired_orient(
+            mask, p4, probe_paired_orient.make_scales(cuda_device, kpad=2, n=769), "small_t")
+
+
+@pytest.mark.parametrize("k,n,h", [(4, 645, 64), (3, 70, 24), (2, 130, 64), (963, 645, 64)])
+def test_probe_paired_bwd_idioms_kernel_matches_plain(cuda_device, k, n, h):
+    mask, ctT, sc = probe_paired_bwd_idioms.device_inputs(cuda_device, k=k, n=n, h=h, seed=k)
+    mask[0, 0, :2] = 2
+    row = _probe_check(probe_paired_bwd_idioms.variant(mask, ctT, sc), "probe_paired_bwd_idioms")
+    assert row["bitwise_repeat"]
+
+
+def test_probe_paired_bwd_idioms_kernel_meets_the_numpy_oracle(cuda_device):
+    mask, ct, sc = probe_paired_bwd_idioms.numpy_inputs()
+    de, do = probe_paired_bwd_idioms.paired_bwd(
+        *(torch.from_numpy(a).to(cuda_device) for a in (mask, ct.T.copy(), sc)))
+    err = probe_paired_bwd_idioms.oracle_error(mask, ct, sc, de.float().cpu().numpy(),
+                                               do.float().cpu().numpy())
+    assert err < 2e-2
+
+
+@pytest.mark.parametrize("kb", [1, 3])
+@pytest.mark.parametrize("k,n,h", [(4, 645, 64), (3, 70, 24), (5, 130, 64), (963, 645, 64)])
+def test_probe_paired_idioms_kernel_matches_plain(cuda_device, k, n, h, kb):
+    mask, pe_aug, po_aug = probe_paired_idioms.device_inputs(cuda_device, k=k, n=n, h=h, seed=k)
+    v = probe_paired_idioms.variant(mask, pe_aug, po_aug, h=h, kb=kb)
+    _probe_check(v, "probe_paired_idioms")
+    assert not v.kernel()[:, h:].any()
+
+
+def test_probe_paired_idioms_kernel_meets_the_numpy_oracle(cuda_device):
+    mask, pe, po, ae, ao, pe_aug, po_aug = probe_paired_idioms.numpy_inputs()
+    out = probe_paired_idioms.paired(
+        torch.from_numpy(mask).to(cuda_device),
+        torch.from_numpy(pe_aug).to(cuda_device, torch.bfloat16),
+        torch.from_numpy(po_aug).to(cuda_device, torch.bfloat16))
+    assert probe_paired_idioms.oracle_error(mask, pe, po, ae, ao, out.cpu().numpy()) < 2e-2
+
+
+def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
+    d = cuda_device
+    m8 = torch.zeros((4, 20, 20), dtype=torch.int8, device=d)
+    p4 = torch.zeros((2, 3, 8, 20), dtype=torch.bfloat16, device=d)
+    sc = torch.zeros((4, 2, 20), device=d)
+    with pytest.raises(TypeError):
+        probe_int8_bw.pallas_sum(m8.float(), 2)
+    with pytest.raises(TypeError):
+        probe_int8_bw.pallas_sum(m8.to(torch.bfloat16), 2, conv=True)
+    with pytest.raises(ValueError):
+        probe_int8_bw.pallas_sum(m8.transpose(1, 2), 2)
+    with pytest.raises(ValueError):
+        probe_int8_bw.pallas_sum(torch.zeros((2, 3, 800), dtype=torch.int8, device=d), 1)
+    with pytest.raises(ValueError):
+        probe_int8_bw.pallas_sum(m8, 5)
+    with pytest.raises(ValueError):
+        probe_int8_bw.pallas_sum(torch.zeros(1 + m8.numel(), dtype=torch.int8, device=d)[1:]
+                                 .view(m8.shape), 2)
+    with pytest.raises(ValueError):
+        probe_paired_parts.paired_parts(m8, p4.float(), "two_dots")
+    with pytest.raises(ValueError):
+        probe_paired_parts.paired_parts(m8[:2], p4, "two_dots")
+    with pytest.raises(ValueError):
+        probe_paired_parts.paired_parts(m8.to(torch.bfloat16), p4, "m128_dot")
+    with pytest.raises(ValueError):
+        probe_paired_parts.paired_parts(m8, p4, "three_dots")
+    with pytest.raises(ValueError):
+        probe_paired_parts.paired_parts(
+            m8, torch.zeros((2, 3, 65, 20), dtype=torch.bfloat16, device=d), "two_dots")
+    with pytest.raises(ValueError):
+        probe_paired_orient.paired_orient(m8, p4, sc[:, :1].contiguous())
+    with pytest.raises(ValueError):
+        probe_paired_orient.paired_orient(m8, p4.transpose(2, 3).contiguous().transpose(2, 3), sc)
+    with pytest.raises(ValueError):
+        probe_paired_orient.paired_orient(m8.float(), p4, sc)
+    with pytest.raises(ValueError, match="bf16 mask"):
+        probe_paired_orient.paired_orient(m8.to(torch.bfloat16), p4, sc, "xo_only")
+    ct = torch.zeros((8, 20), device=d)
+    with pytest.raises(ValueError):
+        probe_paired_bwd_idioms.paired_bwd(m8, ct.double(), sc)
+    with pytest.raises(ValueError):
+        probe_paired_bwd_idioms.paired_bwd(m8, ct, sc[:3].contiguous())
+    with pytest.raises(ValueError):
+        probe_paired_bwd_idioms.paired_bwd(m8, torch.zeros((20, 8), device=d).t(), sc)
+    aug = torch.zeros((4, 20, 128), dtype=torch.bfloat16, device=d)
+    with pytest.raises(ValueError):
+        probe_paired_idioms.paired(m8, aug.float(), aug)
+    with pytest.raises(ValueError):
+        probe_paired_idioms.paired(m8, aug, aug[:, :, :64].contiguous())
+    with pytest.raises(ValueError):
+        probe_paired_idioms.paired(m8, aug, aug, h=65)
+    with pytest.raises(ValueError):
+        probe_paired_idioms.paired(m8, aug, aug.cpu())

@@ -41,7 +41,10 @@ def test_port_and_chip_smoke_import_no_jax():
                    "train.negatives", "models.losses", "train.sampler", "train.trainer",
                    "train.checkpoint", "train.logger", "bench",
                    "scripts.probe_adam_onepass", "scripts.quality_sweep", "graph.renumber",
-                   "ops.tiling", "ops.spmm_pallas"):
+                   "ops.tiling", "ops.spmm_pallas", "scripts.probing",
+                   "scripts.probe_int8_bw", "scripts.probe_paired_parts",
+                   "scripts.probe_paired_orient", "scripts.probe_paired_bwd_idioms",
+                   "scripts.probe_paired_idioms"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]
@@ -90,7 +93,8 @@ def test_port_sources_name_no_forbidden_package(name):
 
 
 @pytest.mark.parametrize(
-    "source", ["paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu", "spmm_tiled.cu"]
+    "source", ["paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu", "spmm_tiled.cu",
+               "probe_int8_bw.cu", "probe_paired.cu"]
 )
 def test_cuda_sources_are_plain_c_interface(source):
     """The kernels build with nvcc into a ctypes library: no PyTorch
