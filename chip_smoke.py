@@ -15,8 +15,10 @@ Phases, each announced with the seconds elapsed since start:
    own inputs: the paired forward on drug-drug (963 pairs, N = 645) and
    PPI (1 pair, N = 19,081) at both layers, the scorer in DEDICOM and
    bilinear mode over ~0.94M edges, with f32 tables (K5) and bf16 tables
-   (K5-bf16, also held within 1e-2 of K5); errors, CUDA-event times,
-   bounds;
+   (K5-bf16, also held within 1e-2 of K5); errors, two calls bitwise
+   equal, CUDA-event times, bounds, and for the paired forward the
+   ``torch.bmm`` yardstick (``library_ms``), the sweep kernel's registers
+   and blocks an SM and the schedule's waves;
 5. serve: launch counters set to 0, then one embedding, the pooled
    drug-drug evaluation on the validation and the test edges, and one
    evaluation each of PPI, protein->drug and drug->protein; every
@@ -35,8 +37,9 @@ Phases, each announced with the seconds elapsed since start:
 8. kernels against plain versions, training: the keep-scale forward
    (K1/K2-ds) and the backward (K3/K4, with keep-scales into f32 and
    without into bf16) on the operands phase 7 recorded, plus a K > 1,
-   N > 4096 case; errors, bitwise repeatability, CUDA-event times and
-   bounds;
+   N > 4096 case; errors, bitwise repeatability, CUDA-event times,
+   bounds, the ``torch.bmm`` yardstick, registers, blocks an SM and
+   waves;
 9. small-input training: 3 Adam steps through the kernels and through
    the plain versions from the same state, bits and negatives;
 10. trainer (paper scale): launch counters set to 0, then the ``Trainer``
@@ -90,8 +93,18 @@ Phases, each announced with the seconds elapsed since start:
    P1-P3 within 1e-5 of the largest output, P4 by the bf16 rule), two
    calls bitwise equal, P1's and P4's numpy oracles; then, launch
    counters set to 0, CUDA-event times of each kernel, its plain version
-   and, for P5, ``torch.sum``, with bounds; K1's phase-4 time is printed
-   beside P3's parts.  P6's launches are those of its timing in phase 11.
+   and, for P5, ``torch.sum``, with bounds; K1's phase-4 time (the sweep
+   design) is printed beside P3's parts (the former WMMA design, at the
+   relations a block that design took).  P6's launches are those of its
+   timing in phase 11.
+
+The paired kernels K1/K2 (forward) and K3/K4 (backward) share one sweep
+(``decagon_tpu_torch/csrc/paired_core.cuh``): a bf16 operand pass, then
+16-byte ``cp.async`` mask staging in a three-stage ring with one barrier a
+chunk, each warp converting the bytes it consumes, ``ldmatrix`` /
+``ldmatrix.trans`` and ``mma.sync`` with the row scales applied in
+registers, and relations and contraction cut into whole waves by
+``ops/spmm_paired.paired_schedule``.
 
 The second-to-last lines are the kernel report (one JSON object) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``.
@@ -244,16 +257,42 @@ def paired_cases(dg, params, model):
     return cases
 
 
+def bmm_library_ms(mask, qd, qt):
+    """CUDA-event ms of the ``torch.bmm`` yardstick (``paired_bmm``: one
+    call a half) on the direct and transposed operands ``[K, H, N]``.  The
+    mask's bf16 copy, the operands' layout, the row scales and the sum
+    over relations stay outside the timed region."""
+    from decagon_tpu_torch.ops.spmm_paired import paired_bmm, paired_bmm_inputs
+
+    m16, qd, qt = paired_bmm_inputs(mask, qd, qt)
+    return cuda_ms(lambda: paired_bmm(m16, qd, qt), reps=5)
+
+
+def sweep_fields(which, k, n, h, device):
+    """The paired sweep kernel's registers and blocks an SM (as the card
+    reports them) and the schedule's cut and waves for one call."""
+    from decagon_tpu_torch.ops.spmm_paired import kernel_info, launch_schedule
+
+    info = kernel_info(which, device.index or 0)
+    sched = launch_schedule(which, k, n, h, device)
+    return dict(registers=info["registers"], blocks_per_sm=info["blocks_per_sm"],
+                splits=[sched.rel_splits, sched.con_splits], blocks=sched.blocks,
+                waves=sched.waves)
+
+
 def check_paired(dg, params, model):
     import torch
 
-    from decagon_tpu_torch.ops.spmm_paired import paired_fwd, paired_ref
+    from decagon_tpu_torch.ops.spmm_paired import paired_fwd, paired_operands, paired_ref
 
     rows = []
     for label, p4, mask, scales in paired_cases(dg, params, model):
         got = paired_fwd(p4, mask, scales)
+        again = paired_fwd(p4, mask, scales)
         want = paired_ref(p4, mask, scales)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"paired_fwd {label}: two calls differ")
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         k, h, n = p4.shape[1], p4.shape[2], p4.shape[3]
@@ -263,9 +302,12 @@ def check_paired(dg, params, model):
         row = dict(
             case=label, K=k, N=n, H=h, dtype=str(p4.dtype).replace("torch.", ""),
             max_abs_err=err, rel_err=err / scale,
+            bitwise_repeat=True,
             ms=cuda_ms(lambda: paired_fwd(p4, mask, scales), reps=5),
             plain_ms=cuda_ms(lambda: paired_ref(p4, mask, scales), reps=3),
+            library_ms=bmm_library_ms(mask, *paired_operands(p4, scales)),
             bytes_ms=nbytes / HBM_BYTES_S * 1e3, ops_ms=flops / BF16_FLOPS * 1e3,
+            **sweep_fields("fwd", k, n, h, p4.device),
         )
         log(json.dumps(row))
         if not row["rel_err"] <= PAIRED_REL_TOL:
@@ -703,7 +745,8 @@ def check_training_kernels(dg, rec):
     import torch
 
     from decagon_tpu_torch.ops.spmm_paired import (
-        paired_bwd, paired_bwd_ref, paired_fwd, paired_ref_ds,
+        paired_bwd, paired_bwd_operands, paired_bwd_ref, paired_fwd, paired_operands,
+        paired_ref_ds,
     )
 
     names = {a.pair_mask.data_ptr(): key for key, a in dg.adj.items() if a.pair_mask is not None}
@@ -713,6 +756,8 @@ def check_training_kernels(dg, rec):
         again = paired_fwd(p4, mask, scales, ds)
         want = paired_ref_ds(p4, mask, scales, ds)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("paired_fwd with keep-scales: two calls differ")
         err, rel = _bwd_hold(got, want, bf16=False)
         k, h, n = p4.shape[1], p4.shape[2], p4.shape[3]
         nbytes, flops = _paired_bytes_ops(mask, k, h, n, p4.numel() * 4 + ds.numel() * 4, n * h * 4)
@@ -720,7 +765,9 @@ def check_training_kernels(dg, rec):
                    max_abs_err=err, rel_err=rel, bitwise_repeat=bool(torch.equal(got, again)),
                    ms=cuda_ms(lambda: paired_fwd(p4, mask, scales, ds), reps=5),
                    plain_ms=cuda_ms(lambda: paired_ref_ds(p4, mask, scales, ds), reps=3),
-                   bytes_ms=nbytes / HBM_BYTES_S * 1e3, ops_ms=flops / BF16_FLOPS * 1e3)
+                   library_ms=bmm_library_ms(mask, *paired_operands(p4, scales, ds)),
+                   bytes_ms=nbytes / HBM_BYTES_S * 1e3, ops_ms=flops / BF16_FLOPS * 1e3,
+                   **sweep_fields("fwd", k, n, h, p4.device))
         row["x_bound"] = row["ms"] / max(row["bytes_ms"], row["ops_ms"])
         log(json.dumps(row))
         fwd_rows.append(row)
@@ -754,7 +801,10 @@ def check_training_kernels(dg, rec):
                    max_abs_err=err, rel_err=rel, bitwise_repeat=True,
                    ms=cuda_ms(lambda: paired_bwd(ct, mask, scales, ds, dt), reps=5),
                    plain_ms=cuda_ms(lambda: paired_bwd_ref(ct, mask, scales, ds, dt), reps=3),
-                   bytes_ms=nbytes / HBM_BYTES_S * 1e3, ops_ms=flops / BF16_FLOPS * 1e3)
+                   library_ms=bmm_library_ms(
+                       mask, *paired_bwd_operands(ct, scales, kk).flip(0)),
+                   bytes_ms=nbytes / HBM_BYTES_S * 1e3, ops_ms=flops / BF16_FLOPS * 1e3,
+                   **sweep_fields("bwd", kk, n, h, ct.device))
         row["x_bound"] = row["ms"] / max(row["bytes_ms"], row["ops_ms"])
         log(json.dumps(row))
         if not label.startswith("synthetic"):
@@ -1381,10 +1431,11 @@ def probes(device, seed, paired_rows):
             log(f"{name} {json.dumps(r)}")
     k1_ms = {r["case"]: r["ms"] for r in paired_rows if r["case"].startswith("(1,1)")}
     parts = {r["case"]: r["ms"] for r in rows["probe_paired_parts"]}
-    log(f"K1 at (1,1), phase 4: {json.dumps(k1_ms)} (K1's {k1} relations a block; layer 1 "
-        f"scales f32 operands, layer 2 bf16); P3's parts at kb {k1}: "
+    log(f"K1, the sweep design, at (1,1), phase 4: {json.dumps(k1_ms)} (layer 1 scales f32 "
+        f"operands, layer 2 bf16); beside it P3, the former WMMA design at its {k1} "
+        "relations a block, bf16 operands, no scales: "
         + ", ".join(f"{m} {parts[f'{m}_kb{k1}']:.3f}" for m in p3.MODES)
-        + f"; P5 int8 read: {rows['probe_int8_bw'][0]['ms']:.3f} ms")
+        + f" ms; P5 int8 read: {rows['probe_int8_bw'][0]['ms']:.3f} ms")
     log(f"probe launches {json.dumps({n: counts[n] for n in groups})}; max memory allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     heads = {"probe_int8_bw": "sum_int8_kb2", "probe_paired_parts": "two_dots_kb4",
@@ -1519,10 +1570,10 @@ def main(argv=None) -> int:
     report = {"kernels": [
         kernel_entry("paired_fwd", "decagon_tpu_torch/csrc/paired_fwd.cu",
                      "decagon_tpu/ops/spmm_paired.py:82", launches["paired_fwd"],
-                     paired_rows + fwd_ds_rows),
+                     paired_rows + fwd_ds_rows, library_rows=paired_rows + fwd_ds_rows),
         kernel_entry("paired_bwd", "decagon_tpu_torch/csrc/paired_bwd.cu",
                      "decagon_tpu/ops/spmm_paired.py:182", launches["paired_bwd"],
-                     bwd_rows),
+                     bwd_rows, library_rows=bwd_rows),
         kernel_entry("sddmm", "decagon_tpu_torch/csrc/sddmm.cu",
                      "decagon_tpu/ops/sddmm_pallas.py:93", launches["sddmm"],
                      sddmm_rows),

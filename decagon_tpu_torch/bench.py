@@ -25,7 +25,9 @@ warm-up chunk (host clock, synchronized after each chunk) and reports edges/s
 ms per step and the effective TFLOP/s of the aggregation; the paired
 config adds its HBM
 share: the half mask stacks read four times a step (two layers, forward
-and backward) over 3.35 TB/s (H100 SXM).  The JAX package's dense and
+and backward) over 3.35 TB/s (H100 SXM), and on CUDA one more chunk of 8
+steps under ``torch.profiler``: the device's busy ms a step, its idle
+share and the kernels that take the most device time.  The JAX package's dense and
 factored trainers are not ported here.
 
 Prints one JSON line: ``metric``, ``value``, ``unit``, ``vs_baseline``,
@@ -53,6 +55,7 @@ REFERENCE_ITER_LATENCY_S = 0.0055  # decagon_iteration_results_0.csv Latency
 HBM_BYTES_S = 3.35e12  # H100 SXM
 TOY_CHUNK, TOY_WINDOWS = 100, 6
 CHUNK, WINDOWS = 320, 3
+PROFILE_STEPS = 8  # the headline's profiled chunk (on CUDA)
 # The sparse configs: chunk, and timed windows per spmm_precision.
 PALLAS_CHUNK = 20
 PALLAS_CONFIGS = (("full_pallas_bf16", "default", 5), ("full_pallas_f32", "highest", 3))
@@ -92,6 +95,31 @@ def steady_state_ms(trainer, chunk: int, windows: int) -> dict:
         "median_ms": statistics.median(times) * 1e3,
         "window_ms": [t * 1e3 for t in times],
         "losses": torch.cat(losses).cpu(),
+    }
+
+
+def device_profile(trainer, steps: int, step_ms: float, top: int = 12) -> dict:
+    """``steps`` more steps in one chunk under ``torch.profiler`` (device
+    activity only; its first use in a process costs several seconds of
+    set-up): the device's busy ms a step (kernel self time summed; one
+    stream), its idle share against ``step_ms`` (the unprofiled chunks'
+    ms a step), and the ``top`` kernels by device time (ms a step and
+    launches a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = list(itertools.islice(trainer.scheduler.epoch(), steps))
+    hard_sync(trainer.params)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_chunk(batches, steps)
+        hard_sync(trainer.params)
+    kernels = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ms for ms, _, _ in kernels) / len(batches)
+    kernels.sort(reverse=True)
+    return {
+        "steps": len(batches), "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / step_ms,
+        "top": [{"name": name[:80], "ms_per_step": ms / len(batches),
+                 "launches_per_step": n / len(batches)} for ms, n, name in kernels[:top]],
     }
 
 
@@ -166,6 +194,8 @@ def bench_fullscale(device) -> dict:
     # and backward), against the card's memory rate.
     out["hbm_util"] = 4 * pair_bytes / (t["min_ms"] / 1e3) / HBM_BYTES_S
     out["host_build_s"] = build_s
+    if device.type == "cuda":
+        out["profile"] = device_profile(trainer, PROFILE_STEPS, t["median_ms"])
     configs = {"full_paired_int8": out}
     del trainer
     for tag, precision, windows in PALLAS_CONFIGS:

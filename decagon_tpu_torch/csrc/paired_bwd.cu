@@ -22,236 +22,155 @@
 // layer 1); the arithmetic, 4*H*N^2 per pair on the bf16 tensor cores, is
 // far below their peak.
 //
-// Design.  The backward has no sum over relations: each (relation, 64-node
-// output tile, 64-column hidden slice) is one block that owns its piece of
-// d for both halves and sweeps the whole contraction dimension in a fixed
-// order, so there are no atomics and two calls are bitwise equal.  Per
-// 64-wide chunk of the contraction it needs two 64 x 64 mask tiles: rows
-// n0.. of B (direct half 1) and rows c0.. read at columns n0.. (half 0).
-// Mask rows have N bytes and N need not be a multiple of 16, so each tile
-// row is fetched as the five 16-byte-aligned chunks that cover it, by
-// cp.async into a raw shared buffer, double-buffered: the next chunk's
-// copies fly while this chunk converts to bf16 and runs WMMA 16x16x16.
-// The cotangent chunk, shared by every relation, stays in L2.  The 1.25x
-// over-fetch of the aligned chunks and the second read of each mask byte
-// (once per half) are the price of owning outputs; reading a tile once for
-// both halves would need a reduction across blocks.
+// Design: the forward's sweep (paired_core.cuh) with the operands and the
+// epilogue of the backward.
+// 1. An operand pass writes q [2][K][Hq][Npad] bf16, q[t][k][h][x] =
+//    bf16(scales[k,t,x] * ct[h,x]) (zero past N and H) from the
+//    L2-resident ct.  The direct tile (rows of B) meets q[1] and gives
+//    d[1]; the transposed tile meets q[0] and gives d[0].
+// 2. The sweep: ``ops/spmm_paired.paired_schedule`` gives each block 64
+//    nodes, a hidden slice, a range of relations and, where K x node tiles
+//    would not fill whole waves (K = 1), a range of the contraction.  At
+//    each relation's end a warp multiplies its accumulators by s per node
+//    in registers and stores them.  The backward has no sum over
+//    relations, so a block owns its piece of d: no atomics, bitwise
+//    repeatable.
+// 3. With the contraction split, blocks store unscaled f32 partials
+//    instead, and a last pass sums them in a fixed order, applies s and
+//    casts.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "paired_core.cuh"
 
 namespace {
 
-constexpr int TN = 64;            // output nodes per block
-constexpr int TK = 64;            // contraction chunk
-constexpr int HS = 64;            // hidden columns per block (one slice)
-constexpr int WARPS = 4;          // each warp owns 16 output nodes
-constexpr int THREADS = WARPS * 32;
-constexpr int RAW_LD = 80;        // bytes per raw tile row: five 16-byte chunks
-constexpr int LDA = TK + 8;       // bf16 row stride of the mask tiles
-constexpr int LDP = HS + 8;       // bf16 row stride of the operand tiles
-constexpr int LDC = HS + 4;       // f32 row stride of the accumulator staging
-
-constexpr int RAW_BYTES = 2 * 2 * TN * RAW_LD;   // 2 stages x 2 tiles
-constexpr int MASK_BYTES = TN * LDA * 2;
-constexpr int OPND_BYTES = TK * LDP * 2;
-constexpr int WORK_BYTES = 2 * MASK_BYTES + 2 * OPND_BYTES;
-constexpr int ACC_BYTES = 2 * TN * LDC * 4;
-constexpr int SMEM_BYTES =
-    RAW_BYTES + (WORK_BYTES > ACC_BYTES ? WORK_BYTES : ACC_BYTES);
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
+using namespace paired;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Copy mask rows row0 .. row0+63, bytes col0 .. col0+63 of each, as the
-// 16-byte-aligned chunks covering them, into raw [64][RAW_LD].  Rows past
-// N are skipped (the conversion zeroes them); a chunk that would cross the
-// end of the mask is copied byte by byte.
-__device__ __forceinline__ void issue_tile(unsigned char* raw, const int8_t* bk,
-                                           const unsigned char* end, int row0,
-                                           int col0, int N, int tid) {
-  for (int idx = tid; idx < TN * 5; idx += THREADS) {
-    const int r = idx / 5, q = idx % 5;
-    const int row = row0 + r;
-    if (row >= N) continue;
-    const uintptr_t start = reinterpret_cast<uintptr_t>(
-        bk + static_cast<size_t>(row) * N + col0);
-    const unsigned char* src =
-        reinterpret_cast<const unsigned char*>((start & ~uintptr_t(15)) + 16 * q);
-    unsigned char* dst = raw + r * RAW_LD + 16 * q;
-    if (src + 16 <= end) {
-      cp_async16(dst, src);
-    } else {
-      for (int b = 0; b < 16; ++b) dst[b] = src + b < end ? src[b] : 0;
-    }
+// q[t][k][h][x] = bf16(scales[k,t,x] * ct[h,x]) for h < H and x < N, else
+// 0.  Grid: x walks the 2 K Hq rows, y the row's groups of eight columns.
+__global__ void bwd_operands_kernel(const float* __restrict__ ct,
+                                    const float* __restrict__ scales,
+                                    __nv_bfloat16* __restrict__ q, int K, int N, int H, int Hq,
+                                    int Npad) {
+  const int row = blockIdx.x;  // (t * K + k) * Hq + h
+  const int h = row % Hq, tk = row / Hq, k = tk % K, t = tk / K;
+  const int j0 = 8 * (blockIdx.y * blockDim.x + threadIdx.x);
+  if (j0 >= Npad) return;
+  const float* a = scales + (static_cast<size_t>(k) * 4 + t) * N;
+  const float* g = ct + static_cast<size_t>(h) * N;
+  __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int j = j0 + e;
+    v[e] = __float2bfloat16_rn(h < H && j < N ? a[j] * g[j] : 0.f);
   }
+  *reinterpret_cast<uint4*>(q + static_cast<size_t>(row) * Npad + j0) =
+      *reinterpret_cast<const uint4*>(v);
 }
 
-// The byte of tile row r at column c: raw holds the aligned chunks, so the
-// row's first byte sits at the start address's offset within 16 bytes.
-__device__ __forceinline__ float tile_byte(const unsigned char* raw,
-                                           const int8_t* bk, int row, int col0,
-                                           int r, int c, int N) {
-  const int off = static_cast<int>(
-      reinterpret_cast<uintptr_t>(bk + static_cast<size_t>(row) * N + col0) & 15);
-  return static_cast<float>(static_cast<int8_t>(raw[r * RAW_LD + off + c]));
-}
+// Per relation: the direct half (half 0) holds d[1]'s piece, the
+// transposed half d[0]'s.  Stored finished (s applied, cast) or, with the
+// contraction split, as this split's f32 partial [2][K][H][N].
+template <typename O>
+struct BwdEpilogue {
+  const float* scales;
+  const float* ds;
+  O* d;
+  float* part;  // this split's partial, or null
+  int K, N, H, n0, h0;
+
+  __device__ __forceinline__ void relation(int k, int half, int rg, int lane,
+                                           const float (&acc)[8][4]) {
+    const int t = 1 - half;
+    const int n = n0 + 16 * rg + (lane >> 2), c = h0 + 2 * (lane & 3);
+    const size_t base = (static_cast<size_t>(t) * K + k) * H;
+    if (part != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int nn = n + (e >> 1) * 8, h = c + 8 * j + (e & 1);
+          if (nn < N && h < H) part[(base + h) * N + nn] = acc[j][e];
+        }
+      return;
+    }
+    float s[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int nn = n + 8 * e;
+      s[e] = 0.f;
+      if (nn < N) {
+        s[e] = scales[(static_cast<size_t>(k) * 4 + 2 + t) * N + nn];
+        if (ds != nullptr) s[e] *= ds[(static_cast<size_t>(k) * 2 + t) * N + nn];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int nn = n + (e >> 1) * 8, h = c + 8 * j + (e & 1);
+        if (nn < N && h < H) store(d + (base + h) * N + nn, s[e >> 1] * acc[j][e]);
+      }
+  }
+};
 
 template <typename O>
-__global__ void __launch_bounds__(THREADS)
-paired_bwd_kernel(const int8_t* __restrict__ mask, const float* __restrict__ ct,
+__global__ void __launch_bounds__(THREADS, 2)
+paired_bwd_kernel(const int8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ q,
                   const float* __restrict__ scales, const float* __restrict__ ds,
-                  O* __restrict__ d, int K, int N, int H) {
-  constexpr int NH = HS / 16;
+                  O* __restrict__ d, float* __restrict__ partial, int K, int N, int H, int Hq,
+                  int rel_splits, int con_splits) {
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* raw = smem;  // [stage][tile][TN][RAW_LD]
-  unsigned char* work = smem + RAW_BYTES;
-  __nv_bfloat16* md = reinterpret_cast<__nv_bfloat16*>(work);  // B[n0+r, c0+c]
-  __nv_bfloat16* mt = reinterpret_cast<__nv_bfloat16*>(work + MASK_BYTES);  // B[c0+c, n0+r]
-  __nv_bfloat16* ce = reinterpret_cast<__nv_bfloat16*>(work + 2 * MASK_BYTES);
-  __nv_bfloat16* co = reinterpret_cast<__nv_bfloat16*>(
-      work + 2 * MASK_BYTES + OPND_BYTES);
-  float* acc0 = reinterpret_cast<float*>(work);  // after the sweep
-  float* acc1 = acc0 + TN * LDC;
+  const size_t half_q = static_cast<size_t>(K) * Hq * ((N + TK - 1) / TK * TK);
+  const Sweep s = block_sweep(mask, K, N, Hq, q + half_q, q, rel_splits, con_splits);
+  float* part = nullptr;
+  if (con_splits > 1)
+    part = partial + static_cast<size_t>(blockIdx.y % con_splits) * 2 * K * H * N;
+  BwdEpilogue<O> epi{scales, ds, d, part, K, N, H, s.n0, s.h0};
+  sweep(s, epi, smem);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int n0 = blockIdx.x * TN;
-  const int k = blockIdx.y;
-  const int h0 = blockIdx.z * HS;
-  const int hs = H - h0 < HS ? H - h0 : HS;
-  const int nh = (hs + 15) / 16;
-  const size_t nn = static_cast<size_t>(N) * N;
-  const int8_t* bk = mask + k * nn;
-  const unsigned char* end = reinterpret_cast<const unsigned char*>(mask) + K * nn;
-  const float* sc = scales + static_cast<size_t>(k) * 4 * N;
-  const float* ct_h = ct + static_cast<size_t>(h0) * N;
-
-  // f0: half 0 (output node j = n0 + row, contraction over i);
-  // f1: half 1 (output node i = n0 + row, contraction over j).
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f0[NH], f1[NH];
-#pragma unroll
-  for (int t = 0; t < NH; ++t) {
-    wmma::fill_fragment(f0[t], 0.f);
-    wmma::fill_fragment(f1[t], 0.f);
-  }
-
-  const int chunks = (N + TK - 1) / TK;
-  issue_tile(raw, bk, end, n0, 0, N, tid);
-  issue_tile(raw + TN * RAW_LD, bk, end, 0, n0, N, tid);
-  cp_async_commit();
-  for (int ci = 0; ci < chunks; ++ci) {
-    const int c0 = ci * TK;
-    if (ci + 1 < chunks) {
-      unsigned char* nxt = raw + ((ci + 1) & 1) * 2 * TN * RAW_LD;
-      issue_tile(nxt, bk, end, n0, c0 + TK, N, tid);
-      issue_tile(nxt + TN * RAW_LD, bk, end, c0 + TK, n0, N, tid);
-    }
-    cp_async_commit();
-    cp_async_wait_1();   // this chunk's copies have landed (this thread's)
-    __syncthreads();     // ... and every thread's; the last MMA is done
-    const unsigned char* rd = raw + (ci & 1) * 2 * TN * RAW_LD;
-    const unsigned char* rt = rd + TN * RAW_LD;
-    // md[r][c] = B[n0 + r, c0 + c]
-    for (int idx = tid; idx < TN * TK; idx += THREADS) {
-      const int r = idx / TK, c = idx % TK;
-      const int i = n0 + r, j = c0 + c;
-      const float v = (i < N && j < N) ? tile_byte(rd, bk, i, c0, r, c, N) : 0.f;
-      md[r * LDA + c] = __float2bfloat16_rn(v);
-    }
-    // mt[r][c] = B[c0 + c, n0 + r]
-    for (int idx = tid; idx < TN * TK; idx += THREADS) {
-      const int c = idx / TN, r = idx % TN;
-      const int i = c0 + c, j = n0 + r;
-      const float v = (i < N && j < N) ? tile_byte(rt, bk, i, n0, c, r, N) : 0.f;
-      mt[r * LDA + c] = __float2bfloat16_rn(v);
-    }
-    // ce[c][h] = bf16(a_e[c0+c] * ct[h0+h, c0+c]); co likewise with a_o.
-    for (int idx = tid; idx < nh * 16 * TK; idx += THREADS) {
-      const int h = idx / TK, c = idx % TK;
-      const int x = c0 + c;
-      float ve = 0.f, vo = 0.f;
-      if (x < N && h < hs) {
-        const float g = ct_h[static_cast<size_t>(h) * N + x];
-        ve = sc[x] * g;
-        vo = sc[N + x] * g;
-      }
-      ce[c * LDP + h] = __float2bfloat16_rn(ve);
-      co[c * LDP + h] = __float2bfloat16_rn(vo);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> at, ad;
-      wmma::load_matrix_sync(at, mt + warp * 16 * LDA + kk * 16, LDA);
-      wmma::load_matrix_sync(ad, md + warp * 16 * LDA + kk * 16, LDA);
-#pragma unroll
-      for (int t = 0; t < NH; ++t) {
-        if (t >= nh) break;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, ce + kk * 16 * LDP + t * 16, LDP);
-        wmma::mma_sync(f0[t], at, fb, f0[t]);
-        wmma::load_matrix_sync(fb, co + kk * 16 * LDP + t * 16, LDP);
-        wmma::mma_sync(f1[t], ad, fb, f1[t]);
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with the work tiles
-#pragma unroll
-  for (int t = 0; t < NH; ++t) {
-    if (t >= nh) break;
-    wmma::store_matrix_sync(acc0 + warp * 16 * LDC + t * 16, f0[t], LDC,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(acc1 + warp * 16 * LDC + t * 16, f1[t], LDC,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  const float* dk = ds == nullptr ? nullptr : ds + static_cast<size_t>(k) * 2 * N;
-  O* d0 = d + (static_cast<size_t>(k) * H + h0) * N;
-  O* d1 = d + ((static_cast<size_t>(K) + k) * H + h0) * N;
-  for (int idx = tid; idx < hs * TN; idx += THREADS) {
-    const int h = idx / TN, r = idx % TN;
-    const int n = n0 + r;
-    if (n >= N) continue;
-    float s0 = sc[2 * N + n], s1 = sc[3 * N + n];
-    if (dk != nullptr) {
-      s0 *= dk[n];
-      s1 *= dk[N + n];
-    }
-    store(d0 + static_cast<size_t>(h) * N + n, s0 * acc0[r * LDC + h]);
-    store(d1 + static_cast<size_t>(h) * N + n, s1 * acc1[r * LDC + h]);
+// d[x] = s(x) * sum over splits of partial[c, x], in split order, cast.
+template <typename O>
+__global__ void bwd_reduce_kernel(const float* __restrict__ partial,
+                                  const float* __restrict__ scales,
+                                  const float* __restrict__ ds, O* __restrict__ d, int splits,
+                                  int K, int N, int H) {
+  const size_t count = 2ull * K * H * N;
+  for (size_t x = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; x < count;
+       x += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int n = static_cast<int>(x % N);
+    const size_t tk = x / (static_cast<size_t>(H) * N);
+    const int k = static_cast<int>(tk % K), t = static_cast<int>(tk / K);
+    float acc = 0.f;
+    for (int c = 0; c < splits; ++c) acc += partial[c * count + x];
+    float sc = scales[(static_cast<size_t>(k) * 4 + 2 + t) * N + n];
+    if (ds != nullptr) sc *= ds[(static_cast<size_t>(k) * 2 + t) * N + n];
+    store(d + x, sc * acc);
   }
 }
 
 template <typename O>
-cudaError_t launch(const void* mask, const void* ct, const void* scales,
-                   const void* ds, void* d, int K, int N, int H,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* mask, const __nv_bfloat16* q, const float* scales,
+                   const float* ds, void* d, float* partial, int K, int N, int H, int Hq,
+                   int rel_splits, int con_splits, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       paired_bwd_kernel<O>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + TN - 1) / TN, K, (H + HS - 1) / HS);
+  const dim3 grid((N + TM - 1) / TM, rel_splits * con_splits, (H + HS - 1) / HS);
   paired_bwd_kernel<O><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const int8_t*>(mask), static_cast<const float*>(ct),
-      static_cast<const float*>(scales), static_cast<const float*>(ds),
-      static_cast<O*>(d), K, N, H);
+      static_cast<const int8_t*>(mask), q, scales, ds, static_cast<O*>(d), partial, K, N, H,
+      Hq, rel_splits, con_splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || con_splits == 1) return err;
+  const size_t count = 2ull * K * H * N;
+  const int blocks = static_cast<int>((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
+  bwd_reduce_kernel<O><<<blocks, 256, 0, stream>>>(partial, scales, ds, static_cast<O*>(d),
+                                                   con_splits, K, N, H);
   return cudaGetLastError();
 }
 
@@ -259,19 +178,49 @@ cudaError_t launch(const void* mask, const void* ct, const void* scales,
 
 extern "C" {
 
-// mask int8 [K, N, N] (16-byte aligned); ct f32 [H, N]; scales f32
-// [K, 4, N]; ds f32 [K, 2, N] keep-scales or null; d [2, K, H, N], f32 or
-// bf16 when out_bf16.
-int dt_paired_bwd(const void* mask, const void* ct, const void* scales,
-                  const void* ds, void* d, int out_bf16, int K, int N, int H,
-                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K < 1 || K > 65535 || N < 1 || H < 1 || (H + HS - 1) / HS > 65535 ||
-      (reinterpret_cast<uintptr_t>(mask) & 15) != 0)
+// mask int8 [K, N, N]; ct f32 [H, N]; scales f32 [K, 4, N]; ds f32
+// [K, 2, N] keep-scales or null; q scratch bf16 [2, K, Hq, Npad] (Hq = H
+// rounded up to 16, Npad = N rounded up to 64); partial scratch f32
+// [con_splits, 2, K, H, N] when con_splits > 1 (else unused); d
+// [2, K, H, N], f32 or bf16 when out_bf16.
+int dt_paired_bwd(const void* mask, const void* ct, const void* scales, const void* ds,
+                  void* q, void* partial, void* d, int out_bf16, int K, int N, int H,
+                  int rel_splits, int con_splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Hq = (H + 15) / 16 * 16, chunks = (N + TK - 1) / TK, Npad = chunks * TK;
+  const long long rows = 2LL * K * Hq;
+  if (K < 1 || N < 1 || H < 1 || rel_splits < 1 || rel_splits > K || con_splits < 1 ||
+      con_splits > chunks || static_cast<long long>(rel_splits) * con_splits > 65535 ||
+      (H + HS - 1) / HS > 65535 || rows > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  return out_bf16
-      ? launch<__nv_bfloat16>(mask, ct, scales, ds, d, K, N, H, s)
-      : launch<float>(mask, ct, scales, ds, d, K, N, H, s);
+  __nv_bfloat16* qb = static_cast<__nv_bfloat16*>(q);
+  const float* sc = static_cast<const float*>(scales);
+  const float* dsf = static_cast<const float*>(ds);
+  const dim3 pass(static_cast<unsigned>(rows), (Npad / 8 + 127) / 128);
+  bwd_operands_kernel<<<pass, 128, 0, st>>>(static_cast<const float*>(ct), sc, qb, K, N, H,
+                                            Hq, Npad);
+  float* part = static_cast<float*>(partial);
+  return out_bf16 ? launch<__nv_bfloat16>(mask, qb, sc, dsf, d, part, K, N, H, Hq,
+                                          rel_splits, con_splits, st)
+                  : launch<float>(mask, qb, sc, dsf, d, part, K, N, H, Hq, rel_splits,
+                                  con_splits, st);
+}
+
+// The sweep kernel's registers, blocks an SM, shared and local bytes, as
+// dt_paired_fwd_info (the f32-output instantiation).
+int dt_paired_bwd_info(int* info) {
+  cudaError_t err = cudaFuncSetAttribute(
+      paired_bwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, paired_bwd_kernel<float>);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], paired_bwd_kernel<float>,
+                                                      THREADS, SMEM_BYTES);
+  info[0] = attr.numRegs;
+  info[2] = SMEM_BYTES;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  return err;
 }
 
 }  // extern "C"

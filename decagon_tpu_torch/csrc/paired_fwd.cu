@@ -22,189 +22,63 @@
 // b_e[k,j]) and bf16((p4[1,k,h,i] * ds[k,1,i]) * b_o[k,i]), in the order of
 // the plain version ``paired_ref_ds``.
 //
-// Any hidden width H: a block covers up to 64 columns of H (grid.z walks
-// the slices); a partial 16-wide fragment is zero-padded in shared memory
-// and its columns are not stored.
+// Bound on this card: memory.  The mask is ~400 MB per layer at paper
+// scale; the arithmetic (4*H*N^2 per pair) is ~0.1 ms at the bf16
+// tensor-core rate.
 //
-// Bound on this card: memory.  The mask is read once per orientation and
-// is ~400 MB per layer at paper scale; the arithmetic (4*H*N^2 per pair)
-// runs on the bf16 tensor cores through WMMA 16x16x16 fragments, far
-// below their peak.
-//
-// Design.  A block owns TM = 64 output rows and a contiguous range of
-// relations (a "split"): for each relation it sweeps the inner dimension
-// in TK = 64 chunks, staging B[rows, chunk] (direct orientation) and
-// B[chunk, rows]^T (transposed orientation) as bf16 in shared memory with
-// the scaled operand chunks, and accumulates both products in registers.
-// After each relation the two accumulators go through shared memory once
-// so the per-row scales a_e / a_o can be applied, and the result adds
-// into the block's running total.  Blocks never share output: each split
-// writes its own partial [N, H], and a second pass sums the partials in
-// split order.  The result is therefore deterministic.  Each B_k tile is
-// read twice, once per orientation; reading it once for both halves (as
-// the TPU kernel does) is later work, as are wgmma and TMA.
+// Design (paired_core.cuh holds the staging and the products,
+// paired_fwd.cuh the sweep kernel with its epilogue).
+// 1. An operand pass writes q [2][K][Hq][Npad] bf16: the scaled, rounded
+//    operands in p4's own [H, N] layout, Hq = H rounded up to 16 and Npad
+//    = N rounded up to 64, zero beyond.  The sweep then copies them with
+//    aligned 16-byte cp.async and never rescales them per node tile.
+// 2. The sweep: a block owns 64 nodes, a 64-column hidden slice, a range
+//    of relations and a range of contraction chunks, chosen by
+//    ``ops/spmm_paired.paired_schedule`` so the grid fills whole waves at
+//    the occupancy the card reports (it splits the contraction when K is
+//    small, as at K = 1).  At each relation's end a warp multiplies its
+//    accumulators by a_e (direct half) or a_o (transposed half) per node,
+//    in registers, into a running total.
+// 3. At the block's end the two halves' totals meet through shared memory
+//    once and the block writes its partial [N, H]; a last pass sums the
+//    partials in a fixed order, so the result is deterministic.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "paired_fwd.cuh"
 
 namespace {
-
-constexpr int TM = 64;            // output rows per block
-constexpr int TK = 64;            // inner-dimension chunk
-constexpr int WARPS = 4;          // each warp owns 16 output rows
-constexpr int THREADS = WARPS * 32;
-constexpr int LDA = TK + 8;       // bf16 row stride of the mask tiles
 
 __device__ __forceinline__ float as_f32(float v) { return v; }
 __device__ __forceinline__ float as_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-constexpr int HS = 64;            // hidden columns per block (one slice)
-
-struct Layout {
-  static constexpr int LDP = HS + 8;  // bf16 row stride of operand tiles
-  static constexpr int LDC = HS + 4;  // f32 row stride of accumulator staging
-  static constexpr int MASK_BYTES = TM * LDA * 2;
-  static constexpr int OPND_BYTES = TK * LDP * 2;
-  static constexpr int STAGE_BYTES = 2 * MASK_BYTES + 2 * OPND_BYTES;
-  static constexpr int ACC_BYTES = 2 * TM * LDC * 4;
-  static constexpr int BYTES = STAGE_BYTES > ACC_BYTES ? STAGE_BYTES : ACC_BYTES;
-};
-
-// Three blocks an SM: the PPI call has only ceil(19081 / 64) = 299 blocks,
-// which then run in one wave on 132 SMs (at two, the register count the
-// runtime width guards reach uncapped, they take two).
+// q[t][k][h][j] = bf16((p4[t,k,h,j] * ds[k,t,j]) * scales[k,2+t,j]) for
+// h < H and j < N, else 0.  Grid: x walks the 2 K Hq rows, y the row's
+// 16-byte groups of eight columns.
 template <typename P>
-__global__ void __launch_bounds__(THREADS, 3)
-paired_fwd_kernel(const int8_t* __restrict__ mask, const P* __restrict__ p4,
-                  const float* __restrict__ scales, const float* __restrict__ ds,
-                  float* __restrict__ partial, int K, int N, int H, int splits) {
-  using L = Layout;
-  constexpr int NH = HS / 16;
-  constexpr int PER_THREAD = TM * HS / THREADS;
-  const int h0 = blockIdx.z * HS;
-  const int hs = H - h0 < HS ? H - h0 : HS;  // columns of this slice
-  const int nh = (hs + 15) / 16;             // fragments that hold them
-  __shared__ __align__(128) unsigned char smem[L::BYTES];
-  __nv_bfloat16* me = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* mo = reinterpret_cast<__nv_bfloat16*>(smem + L::MASK_BYTES);
-  __nv_bfloat16* pe = reinterpret_cast<__nv_bfloat16*>(smem + 2 * L::MASK_BYTES);
-  __nv_bfloat16* po = reinterpret_cast<__nv_bfloat16*>(
-      smem + 2 * L::MASK_BYTES + L::OPND_BYTES);
-  // The accumulator staging reuses the same bytes once a relation is done.
-  float* acc_e = reinterpret_cast<float*>(smem);
-  float* acc_o = acc_e + TM * L::LDC;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int n0 = blockIdx.x * TM;
-  const int split = blockIdx.y;
-  const int k_begin = static_cast<int>(static_cast<long long>(K) * split / splits);
-  const int k_end = static_cast<int>(static_cast<long long>(K) * (split + 1) / splits);
-  const size_t nn = static_cast<size_t>(N) * N;
-
-  float total[PER_THREAD];
+__global__ void fwd_operands_kernel(const P* __restrict__ p4, const float* __restrict__ scales,
+                                    const float* __restrict__ ds,
+                                    __nv_bfloat16* __restrict__ q, int K, int N, int H, int Hq,
+                                    int Npad) {
+  const int row = blockIdx.x;  // (t * K + k) * Hq + h
+  const int h = row % Hq, tk = row / Hq, k = tk % K, t = tk / K;
+  const int j0 = 8 * (blockIdx.y * blockDim.x + threadIdx.x);
+  if (j0 >= Npad) return;
+  const P* src = p4 + (static_cast<size_t>(tk) * H + h) * N;
+  const float* b = scales + (static_cast<size_t>(k) * 4 + 2 + t) * N;
+  const float* d = ds == nullptr ? nullptr : ds + (static_cast<size_t>(k) * 2 + t) * N;
+  __align__(16) __nv_bfloat16 v[8];
 #pragma unroll
-  for (int t = 0; t < PER_THREAD; ++t) total[t] = 0.f;
-
-  for (int k = k_begin; k < k_end; ++k) {
-    const int8_t* bk = mask + k * nn;
-    const P* pe_g = p4 + (static_cast<size_t>(k) * H + h0) * N;
-    const P* po_g = p4 + ((static_cast<size_t>(K) + k) * H + h0) * N;
-    const float* sc = scales + static_cast<size_t>(k) * 4 * N;
-    const float* dk = ds == nullptr ? nullptr : ds + static_cast<size_t>(k) * 2 * N;
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> ce[NH], co[NH];
-#pragma unroll
-    for (int t = 0; t < NH; ++t) {
-      wmma::fill_fragment(ce[t], 0.f);
-      wmma::fill_fragment(co[t], 0.f);
+  for (int e = 0; e < 8; ++e) {
+    const int j = j0 + e;
+    float f = 0.f;
+    if (h < H && j < N) {
+      f = as_f32(src[j]);
+      if (d != nullptr) f *= d[j];
+      f *= b[j];
     }
-
-    for (int c0 = 0; c0 < N; c0 += TK) {
-      __syncthreads();  // the previous chunk (or staging) is consumed
-      // me[r][c] = B_k[n0 + r, c0 + c]: rows of the direct orientation.
-      for (int idx = tid; idx < TM * TK; idx += THREADS) {
-        const int r = idx / TK, c = idx % TK;
-        const int i = n0 + r, j = c0 + c;
-        const int v = (i < N && j < N) ? bk[static_cast<size_t>(i) * N + j] : 0;
-        me[r * LDA + c] = __float2bfloat16_rn(static_cast<float>(v));
-      }
-      // mo[r][c] = B_k[c0 + c, n0 + r]: columns, for the transposed half.
-      for (int idx = tid; idx < TM * TK; idx += THREADS) {
-        const int c = idx / TM, r = idx % TM;
-        const int i = c0 + c, j = n0 + r;
-        const int v = (i < N && j < N) ? bk[static_cast<size_t>(i) * N + j] : 0;
-        mo[r * LDA + c] = __float2bfloat16_rn(static_cast<float>(v));
-      }
-      // pe[c][h] = bf16(p4[0,k,h0+h,c0+c] * b_e[c0+c]); po likewise with
-      // b_o; the keep-scales, when given, multiply p first.
-      for (int idx = tid; idx < nh * 16 * TK; idx += THREADS) {
-        const int h = idx / TK, c = idx % TK;
-        const int j = c0 + c;
-        float ve = 0.f, vo = 0.f;
-        if (j < N && h < hs) {
-          ve = as_f32(pe_g[static_cast<size_t>(h) * N + j]);
-          vo = as_f32(po_g[static_cast<size_t>(h) * N + j]);
-          if (dk != nullptr) {
-            ve *= dk[j];
-            vo *= dk[N + j];
-          }
-          ve *= sc[2 * N + j];
-          vo *= sc[3 * N + j];
-        }
-        pe[c * L::LDP + h] = __float2bfloat16_rn(ve);
-        po[c * L::LDP + h] = __float2bfloat16_rn(vo);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa_e, fa_o;
-        wmma::load_matrix_sync(fa_e, me + warp * 16 * LDA + kk * 16, LDA);
-        wmma::load_matrix_sync(fa_o, mo + warp * 16 * LDA + kk * 16, LDA);
-#pragma unroll
-        for (int t = 0; t < NH; ++t) {
-          if (t >= nh) break;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, pe + kk * 16 * L::LDP + t * 16, L::LDP);
-          wmma::mma_sync(ce[t], fa_e, fb, ce[t]);
-          wmma::load_matrix_sync(fb, po + kk * 16 * L::LDP + t * 16, L::LDP);
-          wmma::mma_sync(co[t], fa_o, fb, co[t]);
-        }
-      }
-    }
-    __syncthreads();  // all warps are done with the staging bytes
-#pragma unroll
-    for (int t = 0; t < NH; ++t) {
-      if (t >= nh) break;
-      wmma::store_matrix_sync(acc_e + warp * 16 * L::LDC + t * 16, ce[t], L::LDC,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(acc_o + warp * 16 * L::LDC + t * 16, co[t], L::LDC,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < PER_THREAD; ++t) {
-      const int e = tid + t * THREADS;
-      const int r = e / HS, h = e % HS;
-      const int n = n0 + r;
-      if (n < N && h < hs) {
-        total[t] += sc[n] * acc_e[r * L::LDC + h] + sc[N + n] * acc_o[r * L::LDC + h];
-      }
-    }
+    v[e] = __float2bfloat16_rn(f);
   }
-
-  float* dst = partial + static_cast<size_t>(split) * N * H;
-#pragma unroll
-  for (int t = 0; t < PER_THREAD; ++t) {
-    const int e = tid + t * THREADS;
-    const int r = e / HS, h = e % HS;
-    const int n = n0 + r;
-    if (n < N && h < hs) dst[static_cast<size_t>(n) * H + h0 + h] = total[t];
-  }
+  *reinterpret_cast<uint4*>(q + static_cast<size_t>(row) * Npad + j0) =
+      *reinterpret_cast<const uint4*>(v);
 }
 
 // out[x] = sum over splits of partial[s, x], in split order.
@@ -219,42 +93,65 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
   }
 }
 
-template <typename P>
-void launch(const void* mask, const void* p4, const void* scales, const float* ds,
-            float* partial, int K, int N, int H, int splits, cudaStream_t stream) {
-  dim3 grid((N + TM - 1) / TM, splits, (H + HS - 1) / HS);
-  paired_fwd_kernel<P><<<grid, THREADS, 0, stream>>>(
-      static_cast<const int8_t*>(mask), static_cast<const P*>(p4),
-      static_cast<const float*>(scales), ds, partial, K, N, H, splits);
-}
+constexpr auto MainSweep = paired_fwd_kernel<WholeSweep>;
 
 }  // namespace
 
 extern "C" {
 
 // mask int8 [K, N, N]; p4 [2, K, H, N] (f32, or bf16 when p_is_bf16);
-// scales f32 [K, 4, N]; ds f32 [K, 2, N] keep-scales or null; out f32
-// [N, H].  ``partial`` is scratch of [splits, N, H] f32, or ``out`` itself
-// when splits == 1.
-int dt_paired_fwd(const void* mask, const void* p4, int p_is_bf16,
-                  const void* scales, const void* ds, void* partial, void* out,
-                  int K, int N, int H, int splits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K < 1 || N < 1 || H < 1 || splits < 1 || splits > K || splits > 65535 ||
-      (H + HS - 1) / HS > 65535)
+// scales f32 [K, 4, N]; ds f32 [K, 2, N] keep-scales or null; q scratch
+// bf16 [2, K, Hq, Npad] (Hq = H rounded up to 16, Npad = N rounded up to
+// 64); partial scratch f32 [rel_splits * con_splits, N, H], or ``out``
+// itself when that product is 1; out f32 [N, H].
+int dt_paired_fwd(const void* mask, const void* p4, int p_is_bf16, const void* scales,
+                  const void* ds, void* q, void* partial, void* out, int K, int N, int H,
+                  int rel_splits, int con_splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Hq = (H + 15) / 16 * 16, chunks = (N + TK - 1) / TK, Npad = chunks * TK;
+  const long long rows = 2LL * K * Hq;
+  if (K < 1 || N < 1 || H < 1 || rel_splits < 1 || rel_splits > K || con_splits < 1 ||
+      con_splits > chunks || static_cast<long long>(rel_splits) * con_splits > 65535 ||
+      (H + HS - 1) / HS > 65535 || rows > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  float* part = static_cast<float*>(partial);
+  const dim3 pass(static_cast<unsigned>(rows), (Npad / 8 + 127) / 128);
+  __nv_bfloat16* qb = static_cast<__nv_bfloat16*>(q);
+  const float* sc = static_cast<const float*>(scales);
   const float* dsf = static_cast<const float*>(ds);
   if (p_is_bf16)
-    launch<__nv_bfloat16>(mask, p4, scales, dsf, part, K, N, H, splits, s);
+    fwd_operands_kernel<<<pass, 128, 0, st>>>(static_cast<const __nv_bfloat16*>(p4), sc, dsf,
+                                              qb, K, N, H, Hq, Npad);
   else
-    launch<float>(mask, p4, scales, dsf, part, K, N, H, splits, s);
-  cudaError_t err = cudaGetLastError();
+    fwd_operands_kernel<<<pass, 128, 0, st>>>(static_cast<const float*>(p4), sc, dsf, qb, K,
+                                              N, H, Hq, Npad);
+  float* part = static_cast<float*>(partial);
+  cudaError_t err =
+      sweep_launch(MainSweep, mask, qb, sc, part, K, N, H, rel_splits, con_splits, st);
+  const int splits = rel_splits * con_splits;
   if (err != cudaSuccess || splits == 1) return err;
   const size_t count = static_cast<size_t>(N) * H;
   const int blocks = static_cast<int>((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
-  sum_splits_kernel<<<blocks, 256, 0, s>>>(part, static_cast<float*>(out), splits, count);
+  sum_splits_kernel<<<blocks, 256, 0, st>>>(part, static_cast<float*>(out), splits, count);
   return cudaGetLastError();
+}
+
+// What the card gives the sweep kernel: info[0] registers a thread,
+// info[1] blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
+// its shared memory), info[2] shared bytes a block, info[3] local
+// (spilled) bytes a thread.
+int dt_paired_fwd_info(int* info) {
+  cudaError_t err =
+      cudaFuncSetAttribute(MainSweep, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, MainSweep);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], MainSweep, THREADS,
+                                                      SMEM_BYTES);
+  info[0] = attr.numRegs;
+  info[2] = SMEM_BYTES;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  return err;
 }
 
 const char* dt_error_string(int status) {

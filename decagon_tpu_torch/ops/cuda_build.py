@@ -30,7 +30,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu", "spmm_tiled.cu",
-           "probe_int8_bw.cu", "probe_paired.cu")
+           "probe_int8_bw.cu", "probe_paired.cu", "probe_paired_sweep.cu")
+HEADERS = ("paired_core.cuh", "paired_fwd.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -39,6 +40,7 @@ LAUNCHES: Dict[str, int] = {
     "paired_fwd": 0, "paired_bwd": 0, "sddmm": 0, "sddmm_bf16": 0, "adam": 0,
     "spmm_tiled": 0, "probe_int8_bw": 0, "probe_paired_parts": 0,
     "probe_paired_orient": 0, "probe_paired_bwd_idioms": 0, "probe_paired_idioms": 0,
+    "probe_paired_sweep": 0, "probe_paired_cuts": 0,
 }
 # What the last build did: seconds, and ptxas' per-kernel report.
 BUILD_INFO: Dict[str, object] = {}
@@ -78,7 +80,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -134,12 +136,15 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             lib.dt_paired_fwd.restype = _I
             lib.dt_paired_fwd.argtypes = [
-                _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
             ]
             lib.dt_paired_bwd.restype = _I
             lib.dt_paired_bwd.argtypes = [
-                _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
             ]
+            for name in ("dt_paired_fwd_info", "dt_paired_bwd_info"):
+                getattr(lib, name).restype = _I
+                getattr(lib, name).argtypes = [_P]
             lib.dt_sddmm.restype = _I
             lib.dt_sddmm.argtypes = [
                 _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P,
@@ -158,6 +163,8 @@ def library() -> ctypes.CDLL:
             lib.dt_probe_paired.argtypes = [
                 _P, _I, _P, _P, _L, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
             ]
+            lib.dt_probe_paired_sweep.restype = _I
+            lib.dt_probe_paired_sweep.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
             lib.dt_probe_paired_bwd.restype = _I
             lib.dt_probe_paired_bwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
             lib.dt_error_string.restype = ctypes.c_char_p

@@ -19,6 +19,15 @@ Kernels (``decagon_tpu_torch/csrc/``) and their plain versions:
 * ``paired_bwd`` wraps ``paired_bwd.cu`` (K3/K4); plain: ``paired_bwd_ref``,
   with the kernel's cast points.
 
+Both kernels run one sweep (``csrc/paired_core.cuh``: 16-byte ``cp.async``
+staging in a three-stage ring, ``ldmatrix`` and ``mma.sync`` with the row
+scales applied in registers) over bf16 operands that a short pass writes
+first (``paired_operands`` / ``paired_bwd_operands`` are their plain
+versions), cut into blocks by ``paired_schedule`` so the grid fills whole
+waves at the occupancy the card reports (``kernel_info``).
+``paired_bmm`` is the yardstick: the same products as one ``torch.bmm`` a
+half, which ``chip_smoke.py`` times and no path of the port calls.
+
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain version on a CPU tensor.  ``_PairedApply`` and ``_PairedApplyDs``
 are the two ``torch.autograd.Function``s (``_paired_apply`` and
@@ -29,7 +38,11 @@ the ``ds`` backward is autograd of ``paired_ref_ds`` as in the JAX package.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Optional
+import ctypes
+import dataclasses
+import functools
+import types
+from typing import TYPE_CHECKING, Mapping, Optional
 
 import torch
 
@@ -38,10 +51,20 @@ from decagon_tpu_torch.ops import cuda_build
 if TYPE_CHECKING:  # pragma: no cover
     from decagon_tpu_torch.graph.device import EdgeTypeAdj
 
-# Output rows and hidden columns per kernel block (``TM``/``TN`` and
-# ``HS`` in the CUDA sources).
+# A kernel block's nodes, hidden columns and contraction chunk (``TM``,
+# ``HS`` and ``TK`` in ``csrc/paired_core.cuh``).
 _ROWS_PER_BLOCK = 64
 _COLS_PER_BLOCK = 64
+_CHUNK = 64
+# ``paired_schedule``'s cost model, in chunk steps of one block: a
+# relation's epilogue, and a block's pipeline fill and final store.  Fitted
+# to the times of every cut at the paper's shapes on an H100
+# (``scripts/probe_paired_cuts.py``, its record ``scripts/paired_cuts_h100.json``).
+_EPILOGUE_STEPS = 0.25
+_BLOCK_STEPS = 3.0
+# The schedule considers grids of at most this many waves (and always the
+# unsplit grid).
+_MAX_WAVES = 16
 PAIRED_IMPLS = ("auto", "paired", "paired_ref")
 
 
@@ -103,6 +126,46 @@ def paired_bwd_ref(
     return torch.stack([se * de, so * do]).to(out_dtype)
 
 
+def paired_operands(
+    p4: torch.Tensor, scales: torch.Tensor, ds: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The forward's bf16 operands ``q [2, K, H, N]``: each half of ``p4``
+    times its keep-scales (when given), then its column scale ``b_e`` /
+    ``b_o``, rounded to bf16 (``paired_ref_ds``'s and ``paired_ref``'s
+    cast points)."""
+    k, n = p4.shape[1], p4.shape[3]
+    p = p4.float()
+    if ds is not None:
+        p = p * ds[:k, :, None, :n].transpose(0, 1)
+    return (p * scales[:k, 2:4, None, :n].transpose(0, 1)).to(torch.bfloat16)
+
+
+def paired_bwd_operands(ct: torch.Tensor, scales: torch.Tensor, k: int) -> torch.Tensor:
+    """The backward's bf16 operands ``[2, K, H, N]``: ``bf16(a_e * ct)`` and
+    ``bf16(a_o * ct)`` of each relation (``paired_bwd_ref``'s cast point)."""
+    n = ct.shape[1]
+    return (scales[:k, 0:2, None, :n].transpose(0, 1) * ct.float()).to(torch.bfloat16)
+
+
+def paired_bmm_inputs(mask: torch.Tensor, qd: torch.Tensor, qt: torch.Tensor):
+    """The ``torch.bmm`` yardstick's inputs: a bf16 copy of the mask
+    ``[K, N, N]`` and the operands ``[K, H, N]`` of the direct and the
+    transposed half as contiguous ``[K, N, H]``.  The forward passes
+    ``paired_operands``' halves 0 and 1, the backward
+    ``paired_bwd_operands``' halves 1 and 0.  Only ``chip_smoke.py`` and
+    the tests call it: no path of the port does."""
+    k, n = qd.shape[0], qd.shape[2]
+    return (mask[:k, :n, :n].to(torch.bfloat16), qd.transpose(1, 2).contiguous(),
+            qt.transpose(1, 2).contiguous())
+
+
+def paired_bmm(m16: torch.Tensor, qd: torch.Tensor, qt: torch.Tensor):
+    """The two halves' products as one library call each: ``B_k @ qd_k``
+    and ``B_k^T @ qt_k``, bf16 ``[K, N, H]`` (f32 sums rounded to bf16).
+    The row scales and the sum over relations are left to the caller."""
+    return torch.bmm(m16, qd), torch.bmm(m16.transpose(1, 2), qt)
+
+
 def _check_common(name, dev, k, n, mask, scales, ds) -> None:
     if mask.dtype != torch.int8 or tuple(mask.shape) != (k, n, n):
         raise ValueError(
@@ -140,13 +203,151 @@ def _check_fwd_args(p4, mask, scales, ds) -> None:
     _check_common("paired_fwd", p4.device, k, n, mask, scales, ds)
 
 
-def paired_splits(k: int, n: int, h: int, device) -> int:
-    """The number of blocks ``paired_fwd`` splits the K relations over on
-    ``device``: enough (node tile, hidden slice, split) blocks to give
-    every SM four, at most one split a relation."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-n // _ROWS_PER_BLOCK) * -(-h // _COLS_PER_BLOCK)
-    return max(1, min(k, -(-4 * sms // tiles)))
+@dataclasses.dataclass(frozen=True)
+class PairedSchedule:
+    """How the paired kernels cut one call's work into blocks: ``tiles``
+    node tiles of 64 x ``hslices`` hidden slices of 64 x ``rel_splits``
+    relation ranges x ``con_splits`` contraction ranges (of the ``chunks``
+    chunks of 64), on a card that runs ``wave`` blocks at once."""
+
+    k: int
+    n: int
+    h: int
+    tiles: int
+    hslices: int
+    chunks: int
+    rel_splits: int
+    con_splits: int
+    wave: int
+
+    @property
+    def partials(self) -> int:
+        """Blocks that share a node tile and slice; the forward sums their
+        partials in index order, the backward its ``con_splits``."""
+        return self.rel_splits * self.con_splits
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.hslices * self.partials
+
+    @property
+    def waves(self) -> float:
+        return self.blocks / self.wave
+
+    @property
+    def hq(self) -> int:
+        """Rows of each operand plane: H rounded up to 16."""
+        return -(-self.h // 16) * 16
+
+    @property
+    def npad(self) -> int:
+        """Columns of each operand plane: N rounded up to a chunk."""
+        return self.chunks * _CHUNK
+
+    def ranges(self):
+        """Each block's work in launch order (``blockIdx`` x fastest, then
+        y, then z): ``(tile, hslice, k0, k1, ch0, ch1, partial)`` with the
+        kernel's integer arithmetic (``block_sweep`` in
+        ``csrc/paired_core.cuh``)."""
+        for z in range(self.hslices):
+            for y in range(self.partials):
+                rs, cs = divmod(y, self.con_splits)
+                k0 = self.k * rs // self.rel_splits
+                k1 = self.k * (rs + 1) // self.rel_splits
+                ch0 = self.chunks * cs // self.con_splits
+                ch1 = self.chunks * (cs + 1) // self.con_splits
+                for x in range(self.tiles):
+                    yield x, z, k0, k1, ch0, ch1, y
+
+
+def _grid(k: int, n: int, h: int, sms: int, blocks_per_sm: int):
+    """(node tiles x hidden slices, chunks, blocks a wave) of a call."""
+    return -(-n // _ROWS_PER_BLOCK) * -(-h // _COLS_PER_BLOCK), -(-n // _CHUNK), sms * blocks_per_sm
+
+
+def schedule_cuts(k: int, n: int, h: int, sms: int, blocks_per_sm: int):
+    """The (rel_splits, con_splits) cuts ``paired_schedule`` weighs: grids
+    of at most ``_MAX_WAVES`` waves (and always the unsplit grid), with
+    each split count the fewest that gives its longest range (the kernel
+    gives each range a floor- or ceil-divided share)."""
+    base, chunks, wave = _grid(k, n, h, sms, blocks_per_sm)
+    cap = max(_MAX_WAVES * wave, base)
+    for rs in range(1, k + 1):
+        if base * rs > cap:
+            break
+        if rs > 1 and -(-k // (rs - 1)) == -(-k // rs):
+            continue  # the same longest block with fewer splits
+        for cs in range(1, chunks + 1):
+            if base * rs * cs > cap or rs * cs > 65535:
+                break
+            if cs > 1 and -(-chunks // (cs - 1)) == -(-chunks // cs):
+                continue
+            yield rs, cs
+
+
+def cut_cost(k: int, n: int, h: int, sms: int, blocks_per_sm: int, rel_splits: int,
+             con_splits: int, epilogue_steps: float = _EPILOGUE_STEPS,
+             block_steps: float = _BLOCK_STEPS) -> float:
+    """The cost model: whole waves times the longest block's chunk steps,
+    a relation's epilogue counted as ``epilogue_steps`` and a block's
+    pipeline fill and final store as ``block_steps``."""
+    base, chunks, wave = _grid(k, n, h, sms, blocks_per_sm)
+    kb, cb = -(-k // rel_splits), -(-chunks // con_splits)
+    waves = -(-base * rel_splits * con_splits // wave)
+    return waves * (kb * (cb + epilogue_steps) + block_steps)
+
+
+def cheapest_cut(k: int, n: int, h: int, sms: int, blocks_per_sm: int,
+                 epilogue_steps: float = _EPILOGUE_STEPS,
+                 block_steps: float = _BLOCK_STEPS):
+    """The ``schedule_cuts`` cut of least ``cut_cost``; ties go to fewer
+    splits, then fewer relation splits."""
+    def key(cut):
+        rs, cs = cut
+        cost = cut_cost(k, n, h, sms, blocks_per_sm, rs, cs, epilogue_steps, block_steps)
+        return cost, rs * cs, rs
+
+    return min(schedule_cuts(k, n, h, sms, blocks_per_sm), key=key)
+
+
+@functools.lru_cache(maxsize=None)
+def paired_schedule(k: int, n: int, h: int, sms: int, blocks_per_sm: int) -> PairedSchedule:
+    """The cut of a paired call's work (K relations, N nodes, H columns)
+    that finishes first on ``sms`` SMs running ``blocks_per_sm`` blocks
+    each, under the cost model ``cut_cost`` (``cheapest_cut``).  At K = 1
+    only the contraction can be split, so it is."""
+    rs, cs = cheapest_cut(k, n, h, sms, blocks_per_sm)
+    return schedule_at(k, n, h, sms, blocks_per_sm, rs, cs)
+
+
+def schedule_at(k: int, n: int, h: int, sms: int, blocks_per_sm: int, rel_splits: int,
+                con_splits: int) -> PairedSchedule:
+    """The ``PairedSchedule`` of a given cut."""
+    return PairedSchedule(k, n, h, -(-n // _ROWS_PER_BLOCK), -(-h // _COLS_PER_BLOCK),
+                          -(-n // _CHUNK), rel_splits, con_splits, sms * blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_info(which: str, device_index: int) -> Mapping[str, int]:
+    """What the card gives the paired sweep kernel ``which`` ("fwd" or
+    "bwd"): registers a thread, blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), shared and local
+    (spilled) bytes, and the SMs; queried once a device (read-only)."""
+    info = (ctypes.c_int * 4)()
+    lib = cuda_build.library()
+    with torch.cuda.device(device_index):
+        status = getattr(lib, f"dt_paired_{which}_info")(ctypes.addressof(info))
+    cuda_build.check(status, f"paired_{which} info")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return types.MappingProxyType(dict(
+        registers=info[0], blocks_per_sm=info[1], smem_bytes=info[2], local_bytes=info[3],
+        sms=sms))
+
+
+def launch_schedule(which: str, k: int, n: int, h: int, device) -> PairedSchedule:
+    """``paired_schedule`` at the occupancy the card reports for ``which``."""
+    info = kernel_info(which, torch.device(device).index or 0)
+    return paired_schedule(k, n, h, info["sms"], max(1, info["blocks_per_sm"]))
 
 
 def paired_fwd(
@@ -159,10 +360,10 @@ def paired_fwd(
 
     ``p4`` [2, K, H, N] f32 or bf16 (f32 with ``ds``); ``mask`` int8
     [K, N, N]; ``scales`` f32 [K, 4, N]; ``ds`` f32 [K, 2, N] keep-scales
-    or None.  CUDA tensors go through the kernel (relations split over
-    enough blocks to fill the card, partial sums reduced in a fixed order,
-    so the result is deterministic); CPU tensors through ``paired_ref`` /
-    ``paired_ref_ds``.
+    or None.  CUDA tensors go through the kernel (an operand pass, then
+    the sweep cut by ``paired_schedule`` into whole waves, partial sums
+    reduced in a fixed order, so the result is deterministic); CPU tensors
+    through ``paired_ref`` / ``paired_ref_ds``.
     """
     if p4.device.type == "cpu":
         if ds is None:
@@ -172,21 +373,30 @@ def paired_fwd(
         raise ValueError(f"paired_fwd runs on cuda or cpu, not {p4.device}")
     _check_fwd_args(p4, mask, scales, ds)
     _, k, h, n = p4.shape
-    lib = cuda_build.library()
     with torch.cuda.device(p4.device):
-        splits = paired_splits(k, n, h, p4.device)
-        out = torch.empty((n, h), dtype=torch.float32, device=p4.device)
-        partial = out if splits == 1 else torch.empty(
-            (splits, n, h), dtype=torch.float32, device=p4.device
-        )
-        status = lib.dt_paired_fwd(
-            mask.data_ptr(), p4.data_ptr(), int(p4.dtype == torch.bfloat16),
-            scales.data_ptr(), 0 if ds is None else ds.data_ptr(),
-            partial.data_ptr(), out.data_ptr(),
-            k, n, h, splits, torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_build.check(status, "paired_fwd")
+        out = run_fwd(p4, mask, scales, ds, launch_schedule("fwd", k, n, h, p4.device))
     cuda_build.LAUNCHES["paired_fwd"] += 1
+    return out
+
+
+def run_fwd(p4, mask, scales, ds, sched: PairedSchedule) -> torch.Tensor:
+    """The forward kernel on checked CUDA operands at the cut ``sched``
+    (``paired_fwd`` passes ``launch_schedule``'s; ``scripts/probe_paired_cuts``
+    others); counts no launch."""
+    _, k, h, n = p4.shape
+    q = torch.empty((2, k, sched.hq, sched.npad), dtype=torch.bfloat16, device=p4.device)
+    out = torch.empty((n, h), dtype=torch.float32, device=p4.device)
+    partial = out if sched.partials == 1 else torch.empty(
+        (sched.partials, n, h), dtype=torch.float32, device=p4.device
+    )
+    status = cuda_build.library().dt_paired_fwd(
+        mask.data_ptr(), p4.data_ptr(), int(p4.dtype == torch.bfloat16),
+        scales.data_ptr(), 0 if ds is None else ds.data_ptr(),
+        q.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        k, n, h, sched.rel_splits, sched.con_splits,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    cuda_build.check(status, "paired_fwd")
     return out.t()
 
 
@@ -200,9 +410,11 @@ def paired_bwd(
     """``d [2, K, H, N]`` in ``out_dtype`` (f32 or bf16) from the cotangent
     ``ct [H, N]`` of ``outT``: the gradient of the paired aggregation with
     respect to ``p4`` (with respect to the raw weights, when ``ds`` is
-    given).  CUDA tensors go through the kernel, one block per (relation,
-    node tile, hidden slice) with a fixed-order sweep, so two calls are
-    bitwise equal; CPU tensors through ``paired_bwd_ref``."""
+    given).  CUDA tensors go through the kernel (an operand pass, then
+    the sweep cut by ``paired_schedule``; each block owns its outputs, or
+    its partial where the contraction is split, summed in a fixed order),
+    so two calls are bitwise equal; CPU tensors through
+    ``paired_bwd_ref``."""
     if ct.device.type == "cpu":
         return paired_bwd_ref(ct, mask, scales, ds, out_dtype)
     if ct.device.type != "cuda":
@@ -215,19 +427,29 @@ def paired_bwd(
     h, n = ct.shape
     k = mask.shape[0]
     _check_common("paired_bwd", ct.device, k, n, mask, scales, ds)
-    if mask.data_ptr() % 16:
-        raise ValueError("paired_bwd: the mask must start on a 16-byte boundary")
-    lib = cuda_build.library()
     with torch.cuda.device(ct.device):
-        d = torch.empty((2, k, h, n), dtype=out_dtype, device=ct.device)
-        status = lib.dt_paired_bwd(
-            mask.data_ptr(), ct.data_ptr(), scales.data_ptr(),
-            0 if ds is None else ds.data_ptr(), d.data_ptr(),
-            int(out_dtype == torch.bfloat16), k, n, h,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_build.check(status, "paired_bwd")
+        d = run_bwd(ct, mask, scales, ds, out_dtype, launch_schedule("bwd", k, n, h, ct.device))
     cuda_build.LAUNCHES["paired_bwd"] += 1
+    return d
+
+
+def run_bwd(ct, mask, scales, ds, out_dtype, sched: PairedSchedule) -> torch.Tensor:
+    """The backward kernel on checked CUDA operands (``ct`` contiguous f32)
+    at the cut ``sched``, as ``run_fwd``; counts no launch."""
+    h, n = ct.shape
+    k = mask.shape[0]
+    q = torch.empty((2, k, sched.hq, sched.npad), dtype=torch.bfloat16, device=ct.device)
+    d = torch.empty((2, k, h, n), dtype=out_dtype, device=ct.device)
+    partial = d if sched.con_splits == 1 else torch.empty(
+        (sched.con_splits, 2, k, h, n), dtype=torch.float32, device=ct.device
+    )
+    status = cuda_build.library().dt_paired_bwd(
+        mask.data_ptr(), ct.data_ptr(), scales.data_ptr(),
+        0 if ds is None else ds.data_ptr(), q.data_ptr(), partial.data_ptr(),
+        d.data_ptr(), int(out_dtype == torch.bfloat16), k, n, h,
+        sched.rel_splits, sched.con_splits, torch.cuda.current_stream().cuda_stream,
+    )
+    cuda_build.check(status, "paired_bwd")
     return d
 
 

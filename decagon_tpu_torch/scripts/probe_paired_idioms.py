@@ -21,7 +21,8 @@ N = 645, H = 64 from numpy draws (seed 0), the kernel against a float64
 numpy oracle with f32 scales (max error < 2e-2 of the largest output, the
 TPU probe's bound), then the kernel against its plain version and its
 CUDA-event time at K = 963 (a ``[963, 645, 645]`` stack with 1% ones), at
-one relation a block (the TPU probe's grid) and at K1's relations a block;
+one relation a block (the TPU probe's grid) and at the relations a block
+of K1's former WMMA design;
 last, one JSON object naming the card.
 """
 

@@ -15,7 +15,7 @@ each returns ``[H, N]`` f32 (a bf16 mask goes with ``both`` and
 - ``small_t``: what ``both`` computes, with each mask tile staged once
   and read in both orientations from shared memory (a block owns a whole
   ``[N, 64]`` output strip, so N <= 768), where the other modes stage
-  the two orientations of each tile apart, as K1 does.
+  the two orientations of each tile apart, as K1's former WMMA design did.
 
 ``paired_orient_ref`` is the plain version.  Tolerance: the mask converts
 to bf16 exactly, products of bf16 values are exact in f32 and the scales

@@ -3,9 +3,10 @@ the probe P3, ``scripts/probe_paired_parts.py``).
 
     python -m decagon_tpu_torch.scripts.probe_paired_parts
 
-``paired_parts(mask, p4, mode, kb)`` runs a variant of K1/K2's kernel
-(``csrc/probe_paired.cu``, on K1's tiles, staging and accumulation) that
-does only part of the work, for the mask ``[Km >= K, N, N]`` int8 and
+``paired_parts(mask, p4, mode, kb)`` runs a variant of K1/K2's former
+kernel, the WMMA design (``csrc/probe_paired.cu``, on that design's tiles,
+byte-wide staging and accumulation; the sweep ``csrc/paired_core.cuh``
+has since replaced it) that does only part of the work, for the mask ``[Km >= K, N, N]`` int8 and
 ``p4 [2, K, H, N]`` bf16, ``kb`` relations a block; each returns
 ``[H, N]`` f32:
 
@@ -25,8 +26,9 @@ order of the f32 sums differs: max error <= 1e-5 of the largest output
 
 ``main`` runs the TPU probe's sweep at its shapes (K = 963 relations of a
 ``[964, 645, 645]`` int8 stack with 1% ones, H = 64, from a seed): every
-mode at ``kb`` 4 and 8, and at the relations per block that K1's wrapper
-picks for the same shape, so the parts add up against K1's own time.  It
+mode at ``kb`` 4 and 8, and at the relations per block that the WMMA
+design took at the same shape (``k1_kb``), so the parts add up against
+that design's time.  It
 checks each variant against its plain version, times it with CUDA
 events, and prints the TPU probe's keys (``<mode>_kb<kb>``, ms) with each
 GB/s over the bytes the variant must read, then one JSON object naming
@@ -41,7 +43,7 @@ from typing import List, Sequence
 
 import torch
 
-from decagon_tpu_torch.ops import cuda_build, spmm_paired
+from decagon_tpu_torch.ops import cuda_build
 from decagon_tpu_torch.scripts import probing
 
 K, N, H = 963, 645, 64
@@ -105,9 +107,11 @@ def make_inputs(device, seed: int = 0, k: int = K, n: int = N, h: int = H, kpad:
 
 
 def k1_kb(k: int, n: int, h: int, device) -> int:
-    """The relations a block of K1 (``ops/spmm_paired.paired_fwd``) takes
-    at this shape on this card."""
-    return -(-k // spmm_paired.paired_splits(k, n, h, device))
+    """The relations a block of K1's former WMMA design took at this shape
+    on this card (``probing.wmma_relations_per_block``): the design this probe
+    copies, not the sweep ``ops/spmm_paired.paired_fwd`` runs now."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return probing.wmma_relations_per_block(k, n, h, sms)
 
 
 def part_bytes_flops(mask: torch.Tensor, p4: torch.Tensor, mode: str):

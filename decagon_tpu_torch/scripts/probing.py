@@ -164,6 +164,17 @@ MAX_H = 64  # one hidden slice
 STRIP_MAX_N = 768  # small_t keeps a [N, 64] f32 strip in shared memory
 
 
+def wmma_relations_per_block(k: int, n: int, h: int, sms: int) -> int:
+    """The relations a block of K1's former WMMA design took (its split
+    rule, frozen here): enough (64-node tile, 64-column slice, split)
+    blocks to give every SM four, at most one split a relation.
+    ``csrc/probe_paired.cu`` copies that design, so P1-P3 keep measuring
+    it at its own shapes."""
+    tiles = -(-n // 64) * -(-h // 64)
+    splits = max(1, min(k, -(-4 * sms // tiles)))
+    return -(-k // splits)
+
+
 def check_on(name: str, device: torch.device, **tensors) -> None:
     """Raise unless every tensor is contiguous and on ``device``."""
     for label, t in tensors.items():

@@ -37,6 +37,8 @@ from decagon_tpu_torch.ops import cuda_build
 from decagon_tpu_torch.ops.spmm_paired import (
     _PairedApply,
     _PairedApplyDs,
+    kernel_info,
+    launch_schedule,
     paired_bwd,
     paired_bwd_ref,
     paired_fwd,
@@ -53,6 +55,7 @@ from decagon_tpu_torch.scripts import (
     probe_paired_idioms,
     probe_paired_orient,
     probe_paired_parts,
+    probe_paired_sweep,
     probing,
 )
 
@@ -179,6 +182,78 @@ def test_paired_autograd_kernel_matches_plain(cuda_device, with_ds):
         out = _PairedApply.apply(p, mask, scales, True)
     out.backward(ct)
     _hold(p.grad, paired_bwd_ref(ct, mask, scales, ds if with_ds else None, torch.float32))
+
+
+# The redesigned paired kernels (shared sweep, ``paired_schedule``): N not a
+# multiple of 16 and N < 64, H = 16, 48, 64 and 96, K = 1 at N >= 4096
+# (the contraction split), K = 963; bf16 and f32 operands, with and
+# without keep-scales; two calls bitwise equal.
+REDESIGN = [(3, 50, 16), (2, 37, 48), (5, 130, 64), (4, 77, 96), (1, 4500, 64),
+            (963, 100, 32), (963, 70, 64)]
+FWD_MODES = [(torch.float32, False), (torch.bfloat16, False), (torch.float32, True)]
+
+
+@pytest.mark.parametrize("dtype,with_ds", FWD_MODES, ids=["f32", "bf16", "f32_ds"])
+@pytest.mark.parametrize("k,n,h", REDESIGN)
+def test_paired_fwd_redesign_matches_plain_and_repeats(cuda_device, k, n, h, dtype, with_ds):
+    mask, scales, ds, p4, _ = _paired_world(k, n, h, cuda_device, seed=3)
+    p4 = p4.to(dtype)
+    ds = ds if with_ds else None
+    got = paired_fwd(p4, mask, scales, ds)
+    again = paired_fwd(p4, mask, scales, ds)
+    want = paired_ref_ds(p4, mask, scales, ds) if with_ds else paired_ref(p4, mask, scales)
+    assert torch.equal(got, again)
+    _hold(got, want)
+
+
+@pytest.mark.parametrize("with_ds", [False, True], ids=["no_ds", "ds"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,n,h", REDESIGN)
+def test_paired_bwd_redesign_matches_plain_and_repeats(cuda_device, k, n, h, out_dtype,
+                                                       with_ds):
+    mask, scales, ds, _, ct = _paired_world(k, n, h, cuda_device, seed=4)
+    ds = ds if with_ds else None
+    got = paired_bwd(ct, mask, scales, ds, out_dtype)
+    again = paired_bwd(ct, mask, scales, ds, out_dtype)
+    assert torch.equal(got, again)
+    _hold(got, paired_bwd_ref(ct, mask, scales, ds, torch.float32),
+          bf16=out_dtype == torch.bfloat16)
+
+
+def test_paired_schedule_splits_the_contraction_on_the_card(cuda_device):
+    """At K = 1 and N >= 4096 the card's schedule splits the contraction,
+    and the kernels report at least two blocks an SM without spills."""
+    for which in ("fwd", "bwd"):
+        info = kernel_info(which, cuda_device.index or 0)
+        assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, info
+        assert launch_schedule(which, 1, 4500, 64, cuda_device).con_splits > 1
+
+
+def test_paired_kernels_take_an_unaligned_mask(cuda_device):
+    """A mask view that does not start on a 16-byte boundary: the chunks
+    before its first byte are copied byte by byte."""
+    k, n, h = 3, 45, 32
+    mask, scales, ds, p4, ct = _paired_world(k, n, h, cuda_device, seed=5)
+    buf = torch.zeros((k * n * n + 1,), dtype=torch.int8, device=cuda_device)
+    view = buf[1:].view(k, n, n)
+    view.copy_(mask)
+    assert view.data_ptr() % 16
+    _hold(paired_fwd(p4, view, scales, ds), paired_ref_ds(p4, mask, scales, ds))
+    _hold(paired_bwd(ct, view, scales, ds, torch.float32),
+          paired_bwd_ref(ct, mask, scales, ds, torch.float32))
+
+
+@pytest.mark.parametrize("dtype,with_ds", FWD_MODES, ids=["f32", "bf16", "f32_ds"])
+@pytest.mark.parametrize("k,n,h", [(3, 50, 16), (4, 77, 96), (1, 4500, 64)])
+def test_probe_paired_sweep_variants_match_plain(cuda_device, k, n, h, dtype, with_ds):
+    """The sweep probe's variants: the sweep against ``paired_ref`` (1e-5
+    of the largest output, the probes' rule), its parts exactly zero."""
+    mask, scales, ds, p4, _ = _paired_world(k, n, h, cuda_device, seed=6)
+    p4, ds = p4.to(dtype), ds if with_ds else None
+    call, *sweeps = probe_paired_sweep.variants("small", mask, scales, ds, p4)
+    assert len(sweeps) == len(probe_paired_sweep.VARIANTS)
+    for v in sweeps:
+        _probe_check(v, "probe_paired_sweep")
 
 
 def _world(seed, n_r, n_c, n_rel, d, b, device):

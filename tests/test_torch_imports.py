@@ -44,7 +44,8 @@ def test_port_and_chip_smoke_import_no_jax():
                    "ops.tiling", "ops.spmm_pallas", "scripts.probing",
                    "scripts.probe_int8_bw", "scripts.probe_paired_parts",
                    "scripts.probe_paired_orient", "scripts.probe_paired_bwd_idioms",
-                   "scripts.probe_paired_idioms"):
+                   "scripts.probe_paired_idioms", "scripts.probe_paired_sweep",
+                   "scripts.probe_paired_cuts"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]
@@ -94,7 +95,7 @@ def test_port_sources_name_no_forbidden_package(name):
 
 @pytest.mark.parametrize(
     "source", ["paired_fwd.cu", "paired_bwd.cu", "sddmm.cu", "adam.cu", "spmm_tiled.cu",
-               "probe_int8_bw.cu", "probe_paired.cu"]
+               "probe_int8_bw.cu", "probe_paired.cu", "probe_paired_sweep.cu"]
 )
 def test_cuda_sources_are_plain_c_interface(source):
     """The kernels build with nvcc into a ctypes library: no PyTorch
@@ -102,3 +103,16 @@ def test_cuda_sources_are_plain_c_interface(source):
     text = (PORT / "csrc" / source).read_text()
     assert "torch/extension.h" not in text and "ATen" not in text
     assert 'extern "C"' in text
+
+
+@pytest.mark.parametrize("header", ["paired_core.cuh", "paired_fwd.cuh"])
+def test_cuda_headers_are_built_and_plain(header):
+    """A header the kernels include is part of the build's hash, and
+    includes no PyTorch header either."""
+    from decagon_tpu_torch.ops import cuda_build
+
+    assert header in cuda_build.HEADERS
+    text = (PORT / "csrc" / header).read_text()
+    assert "torch/extension.h" not in text and "ATen" not in text
+    assert any(f'#include "{header}"' in (PORT / "csrc" / src).read_text()
+               for src in cuda_build.SOURCES)
