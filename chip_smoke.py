@@ -15,14 +15,19 @@ Phases, each announced with the seconds elapsed since start:
    own inputs: the paired forward on drug-drug (963 pairs, N = 645) and
    PPI (1 pair, N = 19,081) at both layers, the scorer in DEDICOM and
    bilinear mode over ~0.94M edges, with f32 tables (K5) and bf16 tables
-   (K5-bf16, also held within 1e-2 of K5); errors, two calls bitwise
-   equal, CUDA-event times, bounds, and for the paired forward the
+   cast once, as the scorer passes them (K5-bf16, also held within 1e-2
+   of K5); errors, two calls bitwise
+   equal, CUDA-event times (for the scorer also its device time alone, a
+   replayed CUDA graph), bounds, and for the paired forward the
    ``torch.bmm`` yardstick (``library_ms``), the sweep kernel's registers
    and blocks an SM and the schedule's waves;
 5. serve: launch counters set to 0, then one embedding, the pooled
    drug-drug evaluation on the validation and the test edges, and one
    evaluation each of PPI, protein->drug and drug->protein; every
-   kernel must have launched and every output must be finite;
+   kernel must have launched and every output must be finite; then the
+   validation evaluation once more through an evaluator built with
+   ``sddmm_impl="pallas"``, which must launch K5 and give the same
+   metrics (its launches are counted apart from the serve run's);
 6. small-input reference: on a small graph, the slice through the
    kernels against the slice through the plain versions (which the CPU
    tests hold against the JAX package), on the card, layer by layer;
@@ -106,6 +111,16 @@ chunk, each warp converting the bytes it consumes, ``ldmatrix`` /
 registers, and relations and contraction cut into whole waves by
 ``ops/spmm_paired.paired_schedule``.
 
+The sparse kernel K6 (``decagon_tpu_torch/csrc/spmm_tiled.cu``) sums
+short rows (at most 32 edges) chunk by chunk from shared memory, with the
+source table there too where it fits, gives each segment of a longer row
+(at most 256 edges, cut at source windows) a group of lanes with 16-byte
+loads, and adds a long row's partial sums in order in a second pass.  The scorer K5
+(``decagon_tpu_torch/csrc/sddmm.cu``) gives an edge one to four lanes,
+keeps its product row in registers and reads the d x d matrices from
+shared memory, staged once a block; K5-bf16 reads bf16 tables, 16 bytes
+(8 elements) a load.
+
 The second-to-last lines are the kernel report (one JSON object) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -121,7 +136,9 @@ import time
 
 T0 = time.perf_counter()
 
-from decagon_tpu_torch.scripts.probing import card, cuda_ms  # noqa: E402
+from decagon_tpu_torch.scripts.probing import (  # noqa: E402
+    card, cuda_ms, device_ms, sddmm_cases, spmm_cases,
+)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s,
 # bf16 tensor-core and plain f32 FLOP/s.
@@ -147,6 +164,9 @@ SDDMM_BF16_TOL = 1e-2
 # sums in other orders (segment, then partials, against index_add_'s):
 # <= 1e-5 of the largest output.
 SPMM_REL_TOL = 1e-5
+# Timed calls of K6 and of torch.sparse.mm a case (phase 15): the smaller
+# edge types take ~0.03 ms, where a few calls read the host's noise.
+SPMM_REPS = 20
 # Whole-step gradients, kernels against plain versions (same parameters,
 # dropout bits and negatives), each leaf to 2^-6 of its largest magnitude.
 # The kernels and the plain versions sum in f32 in other orders, and the
@@ -316,41 +336,6 @@ def check_paired(dg, params, model):
     return rows
 
 
-def sddmm_cases(dg, params, emb, splits, seed):
-    """DEDICOM over the pooled drug-drug validation sweep (positives and
-    negatives of every (1,1) relation, as ``evaluate_all_drug_drug``
-    scores them); bilinear over as many random PPI pairs, on relations 0
-    and 1 of (0,0)."""
-    import numpy as np
-    import torch
-
-    parts = [
-        (k, e) for (i, j, k), sp in sorted(splits.items()) if (i, j) == (1, 1)
-        for e in (sp.val, sp.val_false)
-    ]
-    ks = np.concatenate([np.full(e.shape[0], k, np.int32) for k, e in parts])
-    edges = np.concatenate([e for _, e in parts]).astype(np.int32)
-    dev = emb["1"].device
-    ks, rows, cols = (
-        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        for a in (ks, edges[:, 0], edges[:, 1])
-    )
-    b = ks.numel()
-    dd = params["dec"]["1,1"]
-    g = torch.Generator(device=dev).manual_seed(seed)
-    n_p = dg.num_nodes[0]
-    pk = torch.randint(0, 2, (b,), generator=g, device=dev, dtype=torch.int32)
-    pr = torch.randint(0, n_p, (b,), generator=g, device=dev, dtype=torch.int32)
-    pc = torch.randint(0, n_p, (b,), generator=g, device=dev, dtype=torch.int32)
-    z1, z0 = emb["1"].contiguous(), emb["0"].contiguous()
-    return [
-        ("dedicom (1,1) validation sweep", z1, z1, ks, rows, cols,
-         dict(name="dedicom", glb=dd["global"], rel_diag=dd["local_diag"])),
-        ("bilinear (0,0) random pairs", z0, z0, pk, pr, pc,
-         dict(name="bilinear", rel_full=params["dec"]["0,0"]["relation"])),
-    ]
-
-
 def sddmm_flops(name, ks, rows, n_rows, d):
     """The least f32 operations the scores need on this data: the d x d
     product of a row with its relation's matrix once per distinct
@@ -379,8 +364,13 @@ def check_sddmm(dg, params, emb, splits, seed):
     for label, zr, zc, ks, rows, cols, kw in sddmm_cases(dg, params, emb, splits, seed):
         scores = {}
         for precision, tag in (("highest", ""), ("default", ", bf16 tables")):
+            # K5-bf16 takes the bf16 tables that the scorer casts once a pass.
+            cast = (lambda t: t.to(torch.bfloat16)) if precision == "default" else (lambda t: t)
+            tr, tc = cast(zr), cast(zc)
+            tkw = {k: cast(v) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+
             def kernel():
-                return sddmm_edges(zr, zc, ks, rows, cols, precision=precision, **kw)
+                return sddmm_edges(tr, tc, ks, rows, cols, precision=precision, **tkw)
 
             def plain():
                 return sddmm_plain(zr, zc, ks, rows, cols, precision=precision, **kw)
@@ -396,7 +386,8 @@ def check_sddmm(dg, params, emb, splits, seed):
                       if isinstance(t, torch.Tensor)}
             row = dict(
                 case=label + tag, edges=b, d=d, max_abs_err=err, rel_err=err / scale,
-                ms=cuda_ms(kernel, reps=10), plain_ms=cuda_ms(plain, reps=3),
+                ms=cuda_ms(kernel, reps=10), device_ms=device_ms([kernel], 10),
+                plain_ms=cuda_ms(plain, reps=3),
                 bytes_ms=(16 * b + sum(tables.values())) / HBM_BYTES_S * 1e3,
                 ops_ms=sddmm_flops(kw["name"], ks, rows, zr.shape[0], d) / F32_FLOPS * 1e3,
             )
@@ -413,12 +404,17 @@ def check_sddmm(dg, params, emb, splits, seed):
     return rows_out["highest"], rows_out["default"]
 
 
-def serve(dg, params, evaluator):
-    """The requests, through the evaluator a user calls."""
+def serve(graph, splits, dg, model, params, evaluator):
+    """The requests, through the evaluator a user calls; then the
+    validation sweep through an evaluator with ``sddmm_impl="pallas"``."""
+    import dataclasses
+
     import torch
 
+    from decagon_tpu_torch.models.model import DecagonModel
     from decagon_tpu_torch.ops import cuda_build
     from decagon_tpu_torch.timing import hard_sync
+    from decagon_tpu_torch.train.evaluate import AccuracyEvaluator
 
     cuda_build.reset_launches()
     t = time.perf_counter()
@@ -438,12 +434,27 @@ def serve(dg, params, evaluator):
         s = evaluator.evaluate(params, dg, key, embeddings=emb)
         results[f"relation {key}"] = (s, time.perf_counter() - t)
     counts = dict(cuda_build.LAUNCHES)
+    forced = AccuracyEvaluator(
+        DecagonModel(dataclasses.replace(model.config, sddmm_impl="pallas"), dg), graph, splits,
+        device=dg.device,
+    )
+    cuda_build.reset_launches()
+    t = time.perf_counter()
+    s = forced.evaluate_all_drug_drug(params, dg, use_test=False, embeddings=emb)
+    results["drug-drug val, sddmm_impl='pallas'"] = (s, time.perf_counter() - t)
+    forced_counts = dict(cuda_build.LAUNCHES)
+    if forced_counts["sddmm"] <= 0:
+        raise AssertionError("sddmm_impl='pallas' did not launch K5")
+    auto = results["drug-drug val"][0]
+    if (s.auroc, s.auprc, s.apk) != (auto.auroc, auto.auprc, auto.apk):
+        raise AssertionError(f"sddmm_impl='pallas' metrics {s} differ from 'auto' {auto}")
     for name, (s, secs) in results.items():
         log(f"{name}: auroc {s.auroc:.4f} auprc {s.auprc:.4f} apk {s.apk:.4f} ({1e3 * secs:.1f} ms)")
         for v in (s.auroc, s.auprc, s.apk):
             if not 0.0 <= v <= 1.0:
                 raise AssertionError(f"{name}: metric {v} outside [0, 1]")
-    log(f"launches {counts}")
+    log(f"launches {counts}; the sweep with sddmm_impl='pallas' (not in the report's "
+        f"counts) {forced_counts}")
     for name in ("paired_fwd", "sddmm"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the serving path")
@@ -1111,31 +1122,9 @@ def sparse_model(dg, precision, **kw):
                                     spmm_precision=precision, **kw), dg)
 
 
-def spmm_cases(dg, params):
-    """(label, P_flat, layout) for every edge type, both layers, forward
-    (the projected stack) and backward (a seeded cotangent over the
-    transposed layout), with the sparse path's own operands."""
-    import torch
-
-    from decagon_tpu_torch.models.encoder import _project, encode_layer
-
-    h1 = encode_layer(params, dg, "enc1", dg.features, True, "pallas")
-    gen = torch.Generator(device=dg.device).manual_seed(11)
-    cases = []
-    for key, adj in sorted(dg.adj.items()):
-        src = key.split(",")[1]
-        for layer, level, feat in (("layer 1", "enc1", dg.features[src]), ("layer 2", "enc2", h1[src])):
-            p = _project(feat, params[level][key])
-            h = p.shape[-1]
-            cases.append((f"({key}) {layer} forward", p.reshape(-1, h).contiguous(), adj.tiles_fwd))
-            ct = torch.randn((adj.n_rows, h), generator=gen, device=dg.device)
-            cases.append((f"({key}) {layer} backward", ct, adj.tiles_bwd))
-    return cases
-
-
 def check_spmm(dg, params):
     """K6 against its plain version at both precisions on each case of
-    ``spmm_cases``: error, bitwise repeatability, CUDA-event ms of the
+    ``probing.spmm_cases``: error, bitwise repeatability, CUDA-event ms of the
     kernel, the plain version and ``torch.sparse.mm`` on the same CSR (f32;
     timed here only), and the bounds.  Returns (f32 rows, bf16 rows)."""
     import torch
@@ -1143,11 +1132,11 @@ def check_spmm(dg, params):
     from decagon_tpu_torch.ops.spmm_pallas import spmm_tiled, spmm_tiled_ref
 
     out = {"highest": [], "default": []}
-    for label, p, tiles in spmm_cases(dg, params):
+    for label, p, _, tiles in spmm_cases(dg, params):
         csr = torch.sparse_csr_tensor(tiles.row_ptr, tiles.col, tiles.val,
                                       size=(tiles.n_dst, tiles.n_src))
         lib = torch.sparse.mm(csr, p)
-        library_ms = cuda_ms(lambda: torch.sparse.mm(csr, p), reps=5)
+        library_ms = cuda_ms(lambda: torch.sparse.mm(csr, p), reps=SPMM_REPS)
         distinct = int(torch.unique(tiles.col).numel())
         e, h = tiles.nnz, p.shape[1]
         for precision in ("highest", "default"):
@@ -1163,7 +1152,7 @@ def check_spmm(dg, params):
                 case=label, precision=precision, rows=tiles.n_dst, nnz=e, H=h,
                 distinct_sources=distinct, max_abs_err=err, rel_err=err / top,
                 bitwise_repeat=bool(torch.equal(got, again)),
-                ms=cuda_ms(lambda: spmm_tiled(p, tiles, precision), reps=5),
+                ms=cuda_ms(lambda: spmm_tiled(p, tiles, precision), reps=SPMM_REPS),
                 plain_ms=cuda_ms(lambda: spmm_tiled_ref(p, tiles, precision), reps=2),
                 library_ms=library_ms,
                 library_rel_err=((lib - want).abs().max() / top).item(),
@@ -1445,6 +1434,10 @@ def probes(device, seed, paired_rows):
     return counts, rows, heads
 
 
+# Kernels whose first port was redesigned for the card (marked in the report).
+REDESIGNED = ("paired_fwd", "paired_bwd", "sddmm", "sddmm_bf16", "spmm_tiled")
+
+
 def kernel_entry(name, source, replaces, launches, rows, library_rows=None, cases=None):
     """One kernel's line of the report, its numbers summed over ``rows``;
     ``library_ms`` summed over ``library_rows`` (None: no library call
@@ -1458,7 +1451,7 @@ def kernel_entry(name, source, replaces, launches, rows, library_rows=None, case
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None if library_rows is None else sum(r["library_ms"] for r in library_rows),
-        cases=rows if cases is None else cases,
+        redesigned=name in REDESIGNED, cases=rows if cases is None else cases,
     )
 
 
@@ -1502,7 +1495,7 @@ def main(argv=None) -> int:
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     phase("serve")
-    counts = serve(dg, params, evaluator)
+    counts = serve(graph, splits, dg, model, params, evaluator)
 
     phase("small-input reference")
     small_reference(device)

@@ -17,7 +17,8 @@ Ports the parts of the JAX package's ``bench.py`` that the port runs:
    ``spmm_impl="pallas"`` at ``spmm_precision`` "default" and "highest",
    the ``Trainer`` in chunks of 20 from fresh seeded weights (the paired
    config's weights have another layout), each with its ratio to the
-   headline's step time (``vs_headline``).
+   headline's step time (``vs_headline``); ``full_pallas_bf16`` also
+   profiles one chunk of 8 steps, as the headline does.
 
 Each config times its chunks (6 toy, 3 paired, 5 and 3 sparse) after one
 warm-up chunk (host clock, synchronized after each chunk) and reports edges/s
@@ -25,9 +26,10 @@ warm-up chunk (host clock, synchronized after each chunk) and reports edges/s
 ms per step and the effective TFLOP/s of the aggregation; the paired
 config adds its HBM
 share: the half mask stacks read four times a step (two layers, forward
-and backward) over 3.35 TB/s (H100 SXM), and on CUDA one more chunk of 8
-steps under ``torch.profiler``: the device's busy ms a step, its idle
-share and the kernels that take the most device time.  The JAX package's dense and
+and backward) over 3.35 TB/s (H100 SXM).  On CUDA the headline and
+``full_pallas_bf16`` each run one more chunk of 8 steps under
+``torch.profiler``: the device's busy ms a step, its idle share and the
+kernels that take the most device time.  The JAX package's dense and
 factored trainers are not ported here.
 
 Prints one JSON line: ``metric``, ``value``, ``unit``, ``vs_baseline``,
@@ -55,7 +57,7 @@ REFERENCE_ITER_LATENCY_S = 0.0055  # decagon_iteration_results_0.csv Latency
 HBM_BYTES_S = 3.35e12  # H100 SXM
 TOY_CHUNK, TOY_WINDOWS = 100, 6
 CHUNK, WINDOWS = 320, 3
-PROFILE_STEPS = 8  # the headline's profiled chunk (on CUDA)
+PROFILE_STEPS = 8  # the profiled chunk of the headline and full_pallas_bf16 (on CUDA)
 # The sparse configs: chunk, and timed windows per spmm_precision.
 PALLAS_CHUNK = 20
 PALLAS_CONFIGS = (("full_pallas_bf16", "default", 5), ("full_pallas_f32", "highest", 3))
@@ -209,6 +211,8 @@ def bench_fullscale(device) -> dict:
         tp = steady_state_ms(trainer, PALLAS_CHUNK, windows)
         configs[tag] = config_metrics(nnz, tp)
         configs[tag]["vs_headline"] = tp["min_ms"] / t["min_ms"]
+        if device.type == "cuda" and precision == "default":
+            configs[tag]["profile"] = device_profile(trainer, PROFILE_STEPS, tp["median_ms"])
         del trainer
     return configs
 

@@ -45,8 +45,10 @@ class ModelConfig:
     type; "pallas_ref" is K6's plain version on any device), or "fused",
     "fused_pallas", "fused_pallas_ref" (every edge type at once over the
     fused stream).  ``spmm_precision`` ("highest" or "default") steers K6.
-    ``sddmm_impl`` "auto" (kernel on CUDA, plain on the CPU) or "jnp" (the
-    plain gather-and-multiply path); ``sddmm_precision`` "highest" (K5) or
+    ``sddmm_impl`` "auto" (kernel on CUDA, plain on the CPU), "jnp" (the
+    plain gather-and-multiply path), "pallas" (the kernel, raising off the
+    card) or "pallas_interpret" (raises, naming "jnp"; both checked by
+    ``train/step.make_emb_scores``); ``sddmm_precision`` "highest" (K5) or
     "default" (K5-bf16).  ``remat`` recomputes the encoder in the backward
     pass (``torch.utils.checkpoint``).  Construction raises for the JAX
     package's interpret-mode impls, for an unknown precision and for a

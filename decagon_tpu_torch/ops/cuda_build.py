@@ -131,6 +131,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -147,7 +149,7 @@ def library() -> ctypes.CDLL:
                 getattr(lib, name).argtypes = [_P]
             lib.dt_sddmm.restype = _I
             lib.dt_sddmm.argtypes = [
-                _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P,
+                _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P,
             ]
             lib.dt_adam.restype = _I
             lib.dt_adam.argtypes = [
@@ -155,7 +157,8 @@ def library() -> ctypes.CDLL:
             ]
             lib.dt_spmm_tiled.restype = _I
             lib.dt_spmm_tiled.argtypes = [
-                _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                _I, _I, _I, _I, _P,
             ]
             lib.dt_probe_column_sum.restype = _I
             lib.dt_probe_column_sum.argtypes = [_P, _I, _L, _I, _I, _I, _P, _P, _P]

@@ -13,9 +13,12 @@ is CUDA, ``decagon_tpu_torch/csrc/sddmm.cu``).  For B edges
 in one of the reference's two precisions: ``"highest"`` (f32 throughout)
 or ``"default"`` (every table rounded to bf16, f32 sums, and DEDICOM's
 ``z_r * d_k`` rounded to bf16 before the product with ``G``: the cast
-points of ``sddmm_pallas_edges`` at ``precision="default"``).
-``sddmm_edges`` launches the kernel for CUDA tensors and runs
-``sddmm_plain`` for CPU tensors.
+points of ``sddmm_pallas_edges`` at ``precision="default"``; the kernel
+reads bf16 tables, cast once per scoring pass).  ``sddmm_edges`` launches the
+kernel for CUDA tensors and runs ``sddmm_plain`` for CPU tensors.  Edges
+may come in any order and over any number of relations; the kernel is
+fastest when a block's edges name few relations, as an evaluation sweep
+staged relation by relation does.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from decagon_tpu_torch.ops.sddmm import sddmm_pairs
 SUPPORTED_DECODERS = ("innerproduct", "distmult", "dedicom", "bilinear")
 PRECISIONS = ("highest", "default")
 _MODES = {"innerproduct": 0, "distmult": 1, "dedicom": 2, "bilinear": 3}
-_MAX_DIM = 128
+MAX_DIM = 128
 
 
 def sddmm_plain(
@@ -114,13 +117,15 @@ def sddmm_edges(
 ) -> torch.Tensor:
     """``[B]`` logits (same shape as ``ks``) for ``(ks, rows, cols)``.
 
-    ``z_rows`` / ``z_cols``: [N_r, d] / [N_c, d] f32 tables, d <= 128.
+    ``z_rows`` / ``z_cols``: [N_r, d] / [N_c, d] tables, d <= 128.
     ``rel_diag``: [K, d] (distmult's ``relation_diag``, dedicom's
     ``local_diag``); ``glb``: [d, d] (dedicom); ``rel_full``: [K, d, d]
     (bilinear).  Index tensors are int32.  ``precision``: ``"highest"``
-    (K5) or ``"default"`` (K5-bf16: the tables are cast to bf16 here and
-    the kernel reads them so).  On CUDA an index outside its table gives a
-    NaN score instead of an out-of-bounds read.
+    (K5, f32 tables) or ``"default"`` (K5-bf16, which reads bf16 tables:
+    f32 ones are cast here, on every call; a caller that scores many
+    chunks casts them once, as ``train/step.make_emb_scores`` does).  On
+    CUDA an index outside its table gives a NaN score instead of an
+    out-of-bounds read.
     """
     if name not in SUPPORTED_DECODERS:
         raise ValueError(f"sddmm supports {SUPPORTED_DECODERS}, not {name!r}")
@@ -134,19 +139,25 @@ def sddmm_edges(
         raise ValueError(f"sddmm runs on cuda or cpu, not {z_rows.device}")
     rel, g = _tables(name, glb, rel_diag, rel_full)
     d = z_rows.shape[1]
-    if not 1 <= d <= _MAX_DIM or z_cols.shape[1] != d:
-        raise ValueError(f"embedding width must match and be <= {_MAX_DIM}")
+    if not 1 <= d <= MAX_DIM or z_cols.shape[1] != d:
+        raise ValueError(f"embedding width must match and be <= {MAX_DIM}")
+    bf16 = precision == "default"
+    table_dtype = torch.bfloat16 if bf16 else torch.float32
+    if bf16:
+        same = z_cols is z_rows
+        z_rows, rel, g = (None if t is None else t.to(table_dtype) for t in (z_rows, rel, g))
+        z_cols = z_rows if same else z_cols.to(table_dtype)
     expect = {
-        "z_rows": (z_rows, torch.float32, 2),
-        "z_cols": (z_cols, torch.float32, 2),
+        "z_rows": (z_rows, table_dtype, 2),
+        "z_cols": (z_cols, table_dtype, 2),
         "ks": (ks, torch.int32, None),
         "rows": (rows, torch.int32, None),
         "cols": (cols, torch.int32, None),
     }
     if rel is not None:
-        expect["rel"] = (rel, torch.float32, 3 if name == "bilinear" else 2)
+        expect["rel"] = (rel, table_dtype, 3 if name == "bilinear" else 2)
     if g is not None:
-        expect["glb"] = (g, torch.float32, 2)
+        expect["glb"] = (g, table_dtype, 2)
     for key, (t, dtype, ndim) in expect.items():
         if t.dtype != dtype or t.device != z_rows.device or not t.is_contiguous():
             raise ValueError(
@@ -160,11 +171,9 @@ def sddmm_edges(
         raise ValueError(f"glb must be [{d}, {d}]")
     if not (ks.shape == rows.shape == cols.shape):
         raise ValueError("ks, rows and cols must have one shape")
-    bf16 = precision == "default"
-    if bf16:
-        z_rows, z_cols, rel, g = (
-            None if t is None else t.to(torch.bfloat16) for t in (z_rows, z_cols, rel, g)
-        )
+    tables = [t for t in (z_rows, z_cols, rel, g) if t is not None]
+    vl = 8 if bf16 else 4
+    vl = vl if d % vl == 0 and all(t.data_ptr() % 16 == 0 for t in tables) else 1
     lib = cuda_build.library()
     with torch.cuda.device(z_rows.device):
         out = torch.empty(ks.shape, dtype=torch.float32, device=z_rows.device)
@@ -174,7 +183,7 @@ def sddmm_edges(
             None if g is None else g.data_ptr(),
             ks.data_ptr(), rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
             ks.numel(), d, z_rows.shape[0], z_cols.shape[0],
-            0 if rel is None else rel.shape[0],
+            0 if rel is None else rel.shape[0], vl,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(status, "sddmm")

@@ -8,11 +8,11 @@ It computes ``out[dst] += val * P_flat[src]`` over the flattened
 the whole fused stream (``spmm_pallas_flat``), with f32 sums:
 
 * ``precision="highest"``: f32 throughout;
-* ``precision="default"``: ``P_flat`` cast to bf16 once per call and each
-  edge value rounded to bf16; each product of two bf16 values is exact in
-  f32.  On a TPU the reference's second MXU product would also round each
-  message to bf16; its CPU path, which the tests hold the port to, does
-  not, and neither does the port.
+* ``precision="default"``: ``P_flat`` and each edge value rounded to bf16
+  (the kernel rounds an f32 table as it reads it); each product of two
+  bf16 values is exact in f32.  On a TPU the reference's
+  second MXU product would also round each message to bf16; its CPU path,
+  which the tests hold the port to, does not, and neither does the port.
 
 The backward is the same kernel over the transposed layout (``tiles_bwd``)
 applied to the cotangent, rounded to bf16 at ``"default"`` as the
@@ -24,12 +24,14 @@ impls, which ``chip_smoke.py`` compares the kernel with).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import TYPE_CHECKING
 
 import torch
 
 from decagon_tpu_torch.ops import cuda_build
-from decagon_tpu_torch.ops.tiling import CsrEdges
+from decagon_tpu_torch.ops.tiling import CHUNK_EDGES, CHUNK_ROWS, CsrEdges
 
 if TYPE_CHECKING:  # pragma: no cover
     from decagon_tpu_torch.graph.device import EdgeTypeAdj, FusedAdj
@@ -46,30 +48,91 @@ def spmm_tiled_ref(p_flat: torch.Tensor, tiles: CsrEdges, precision: str = "high
     """Plain version: ``[tiles.n_dst, H]`` f32 by one gather and one f32
     ``index_add_``, with the kernel's roundings."""
     _check_precision(precision)
-    p, val = p_flat.float(), tiles.val
-    if precision == "default":
-        p = p.to(torch.bfloat16).float()
-        val = val.to(torch.bfloat16).float()
+    p, val = _rounded(p_flat, tiles, precision)
     msgs = p[tiles.col.long()] * val[:, None]
     out = torch.zeros((tiles.n_dst, p.shape[1]), dtype=torch.float32, device=p.device)
     return out.index_add_(0, tiles.dst_index(), msgs)
 
 
+def _rounded(p_flat: torch.Tensor, tiles: CsrEdges, precision: str):
+    """The table as f32 and the edge values, rounded to bf16 at "default"."""
+    p, val = p_flat.float(), tiles.val
+    if precision == "default":
+        p = p.to(torch.bfloat16).float()
+        val = val.to(torch.bfloat16).float()
+    return p, val
+
+
 def _vec(h: int, ptr: int, itemsize: int) -> int:
-    """Elements per lane: the widest of 4, 2, 1 that divides ``h``, keeps
-    at least half the lanes of a slice busy and matches ``ptr``'s
+    """Elements a lane loads at once: the widest of 16 bytes' worth (4 f32
+    or 8 bf16), then halves, that divides ``h`` and matches ``ptr``'s
     alignment."""
-    for v in (4, 2):
-        if h % v == 0 and h > 16 * v and ptr % (v * itemsize) == 0:
-            return v
-    return 1
+    v = 16 // itemsize
+    while v > 1 and (h % v or ptr % (v * itemsize)):
+        v //= 2
+    return v
+
+
+# The row pass copies the table into shared memory when it takes at most
+# this many bytes and its rows are gathered at least _STAGE_REUSE times for
+# each SM's copy.  On the H100 (scripts/probe_sparse_kernels.py
+# time_staging: rows of 7 edges from a [645, 64] or [645, 32] table),
+# staging cost 3-23% at "highest" below 4 gathers a copy and saved 7-14%
+# from 4 on; at "default" it saved 10-28% at every reuse from 0.25 to 32.
+# At the drug-drug backward (~110 gathers a copy) it saves 24-31%.
+_STAGE_BYTES = 180 * 1024
+_STAGE_REUSE = 4
+_LAYOUT_TENSORS = ("row_ptr", "col", "val", "row_chunks", "seg_edges", "seg_dst", "seg_order",
+                   "multi_row", "multi_ptr")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_plan(tiles: CsrEdges, h: int, ptr: int, b16: bool, rnd: bool, sms: int):
+    """(vec, rows_vec, staged) of one call on a table of ``h`` columns (bf16
+    when ``b16``) at address ``ptr``, rounded to bf16 when ``rnd``: the
+    elements a lane loads at once from device memory; whether the row pass
+    copies the table into shared memory (where it fits, as bf16 when
+    ``b16`` or ``rnd``, and its rows are gathered often enough to repay
+    ``sms`` copies); and the row pass's load width then (4 elements where
+    ``h`` allows: 16 lanes a row at H = 64)."""
+    item = 2 if b16 else 4
+    vec = _vec(h, ptr, item)
+    staged_bytes = tiles.n_src * h * (2 if b16 or rnd else 4)
+    staged = (staged_bytes <= _STAGE_BYTES
+              and tiles.n_src * h * item % 4 == 0 and ptr % 4 == 0  # copied in 4-byte words
+              and tiles.nnz >= _STAGE_REUSE * sms * tiles.n_src)
+    rows_vec = next(v for v in (4, 2, 1) if h % v == 0) if staged else vec
+    return vec, rows_vec, staged
+
+
+def _layout_args(tiles: CsrEdges, device: torch.device) -> tuple:
+    """The layout's part of the kernel's arguments (its tensors' addresses,
+    then its chunk, segment and long-row counts and ``n_src``); raises
+    unless every tensor is contiguous on ``device``.  Kept on ``tiles``
+    for the device it was last called on."""
+    if tiles.launch_args is not None and tiles.launch_args[0] == device:
+        return tiles.launch_args[1]
+    for name in _LAYOUT_TENSORS:
+        t = getattr(tiles, name)
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"tiles.{name} must be contiguous on {device}")
+    args = tuple(getattr(tiles, name).data_ptr() for name in _LAYOUT_TENSORS) + (
+        int(tiles.row_chunks.shape[0]), tiles.num_segments, int(tiles.multi_row.shape[0]),
+        tiles.n_src,
+    )
+    tiles.launch_args = (device, args)
+    return args
 
 
 def spmm_tiled(p_flat: torch.Tensor, tiles: CsrEdges, precision: str = "highest") -> torch.Tensor:
     """``out [tiles.n_dst, H]`` f32 with ``out[d] = sum val * P[col]`` over
-    row ``d``'s edges.  ``p_flat``: [tiles.n_src, H], f32 or bf16.  A CUDA
-    tensor goes through K6 (bitwise repeatable), a CPU tensor through
-    ``spmm_tiled_ref``."""
+    row ``d``'s edges.  ``p_flat``: [tiles.n_src, H], f32 or bf16 (other
+    types are read as f32).  A CUDA tensor goes through K6 (bitwise
+    repeatable), a CPU tensor through ``spmm_tiled_ref``."""
     _check_precision(precision)
     if p_flat.device.type == "cpu":
         return spmm_tiled_ref(p_flat, tiles, precision)
@@ -79,27 +142,25 @@ def spmm_tiled(p_flat: torch.Tensor, tiles: CsrEdges, precision: str = "highest"
         raise ValueError(
             f"p_flat must be [{tiles.n_src}, H >= 1], got {tuple(p_flat.shape)}"
         )
-    for name in ("col", "val", "seg_ptr", "seg_row", "seg_slot", "multi_row", "multi_ptr"):
-        t = getattr(tiles, name)
-        if t.device != p_flat.device or not t.is_contiguous():
-            raise ValueError(f"tiles.{name} must be contiguous on {p_flat.device}")
-    bf16 = precision == "default"
-    src = (p_flat.to(torch.bfloat16) if bf16 else p_flat.float()).contiguous()
+    device = p_flat.device
+    layout = _layout_args(tiles, device)
+    src = p_flat if p_flat.dtype in (torch.float32, torch.bfloat16) else p_flat.float()
+    src = src.contiguous()
     h = src.shape[1]
-    vec = _vec(h, src.data_ptr(), src.element_size())
+    b16, rnd = src.dtype == torch.bfloat16, precision == "default"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    vec, rows_vec, staged = launch_plan(tiles, h, src.data_ptr(), b16, rnd, _sm_count(index))
     lib = cuda_build.library()
-    with torch.cuda.device(src.device):
-        out = torch.empty((tiles.n_dst, h), dtype=torch.float32, device=src.device)
+    with contextlib.nullcontext() if index == torch.cuda.current_device() else torch.cuda.device(index):
+        out = torch.empty((tiles.n_dst, h), dtype=torch.float32, device=device)
         partial = (
-            torch.empty((tiles.num_slots, h), dtype=torch.float32, device=src.device)
+            torch.empty((tiles.num_slots, h), dtype=torch.float32, device=device)
             if tiles.num_slots else out
         )
         status = lib.dt_spmm_tiled(
-            src.data_ptr(), int(bf16), tiles.col.data_ptr(), tiles.val.data_ptr(),
-            tiles.seg_ptr.data_ptr(), tiles.seg_row.data_ptr(), tiles.seg_slot.data_ptr(),
-            tiles.multi_row.data_ptr(), tiles.multi_ptr.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), tiles.num_segments, int(tiles.multi_row.shape[0]),
-            tiles.n_src, h, vec, torch.cuda.current_stream().cuda_stream,
+            src.data_ptr(), int(b16), int(rnd), *layout[:9], partial.data_ptr(),
+            out.data_ptr(), *layout[9:], h, vec, rows_vec, int(staged), CHUNK_ROWS, CHUNK_EDGES,
+            torch.cuda.current_stream(index).cuda_stream,
         )
     cuda_build.check(status, "spmm_tiled")
     cuda_build.LAUNCHES["spmm_tiled"] += 1

@@ -7,7 +7,7 @@ At P6's leaf shape ``[1926, 64, 645]`` it runs two cases: bf16 g, m, v
 with f32 p (P6's), and f32 throughout (the contract of
 ``ops/optim.fused_adam_apply``'s kernel).  Each case first checks one
 kernel call against ``adam_onepass_ref`` (bit for bit, in place), then
-times 20 calls on the device alone (``device_ms``: one CUDA graph
+times 20 calls on the device alone (``probing.device_ms``: one CUDA graph
 of the calls, replayed between CUDA events, each call on operands that
 are not in the L2 cache): the eager chain
 (``adam_onepass_ref``), the kernel at each block size of the sweep (P6
@@ -82,43 +82,17 @@ def copy_at_offset(x: torch.Tensor) -> torch.Tensor:
 
 
 def rotation(n: int, dtype: torch.dtype) -> int:
-    """How many copies of a case of ``n`` elements ``device_ms`` takes in
+    """How many copies of a case of ``n`` elements ``probing.device_ms`` takes in
     turn so that at least 4x the L2 cache of other operands passes between
     two uses of one copy (1 where the case alone is that large)."""
     footprint = n * (3 * torch.empty((), dtype=dtype).element_size() + 4)
     return 1 if footprint >= 4 * L2_BYTES else 1 + -(-4 * L2_BYTES // footprint)
 
 
-def device_ms(fns, iters: int) -> float:
-    """Mean device ms of one call over ``iters`` calls that take ``fns`` in
-    turn: each called once to warm up, then the ``iters`` calls captured
-    in one CUDA graph, whose second replay is timed with CUDA events.
-    What the host spends issuing a call (Python, ctypes, the launch) stays
-    out of the replay, so a leaf of a few MB reads its kernels' time and
-    not its wrapper's; with ``fns`` over ``rotation`` copies of a case, a
-    call finds its operands in HBM, as the update of a step does, and not
-    in the L2 where the previous call left them."""
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fns[i % len(fns)]()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def library_ms(sets, iters: int) -> Optional[float]:
     """``torch.optim.Adam(fused=True).step()``, one optimizer for each case
     ``(g, m, v, p)`` of ``sets``, taken in turn (the same update up to the
-    order of its operations; ``capturable`` so that ``device_ms`` can
+    order of its operations; ``capturable`` so that ``probing.device_ms`` can
     capture it), or None where it does not take the dtypes (bf16 moments
     beside f32 parameters)."""
     if sets[0][0].dtype != torch.float32:
@@ -134,7 +108,7 @@ def library_ms(sets, iters: int) -> Optional[float]:
         state["exp_avg"].copy_(m)
         state["exp_avg_sq"].copy_(v)
         steps.append(opt.step)
-    return device_ms(steps, iters)
+    return probing.device_ms(steps, iters)
 
 
 def run_case(label: str, case: List[torch.Tensor], iters: int,
@@ -180,10 +154,10 @@ def time_case(row: Dict, case: List[torch.Tensor], iters: int, block_sizes=(256,
     nbytes = onepass_bytes(n, g.dtype)
     sets = [[copy_at_offset(x) for x in case] for _ in range(rotation(n, g.dtype))]
     row["copies"] = len(sets)
-    row["plain_ms"] = device_ms(
+    row["plain_ms"] = probing.device_ms(
         [lambda c=c: adam_onepass_ref(*c, **SCALARS) for c in sets], iters)
     row["block_ms"] = {
-        b: device_ms([lambda c=c, b=b: adam_onepass(*c, **SCALARS, block_threads=b)
+        b: probing.device_ms([lambda c=c, b=b: adam_onepass(*c, **SCALARS, block_threads=b)
                       for c in sets], iters)
         for b in block_sizes
     }

@@ -1,6 +1,8 @@
-"""What the paired-kernel probes share (``probe_int8_bw``,
-``probe_paired_parts``, ``probe_paired_orient``, ``probe_paired_bwd_idioms``,
-``probe_paired_idioms``).
+"""What the kernel probes share (``probe_int8_bw``, ``probe_paired_parts``,
+``probe_paired_orient``, ``probe_paired_bwd_idioms``, ``probe_paired_idioms``,
+``probe_adam_onepass``, ``probe_sparse_kernels``) and ``chip_smoke.py``
+uses: the timers (``cuda_ms``, ``device_ms``), the card's name, and the
+paper-scale cases of the sparse kernels (``spmm_cases``, ``sddmm_cases``).
 
 A probe is a list of ``Variant``s: a kernel call, its plain PyTorch version
 on the same inputs, optionally the one PyTorch call that computes the same
@@ -106,6 +108,32 @@ def cuda_ms(fn: Callable[[], object], reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fns, iters: int) -> float:
+    """Mean device ms of one call over ``iters`` calls that take ``fns`` in
+    turn: each called once to warm up, then the ``iters`` calls captured
+    in one CUDA graph, whose second replay is timed with CUDA events.
+    What the host spends issuing a call (Python, ctypes, the launch) stays
+    out of the replay, so a leaf of a few MB reads its kernels' time and
+    not its wrapper's; with ``fns`` over ``rotation`` copies of a case, a
+    call finds its operands in HBM, as the update of a step does, and not
+    in the L2 where the previous call left them."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_variant(v: Variant, reps: int, plain_reps: Optional[int] = None) -> Dict[str, object]:
     """CUDA-event ms of the kernel, the plain version and the library call
     (None where there is none), the bytes and operations bounds, and the
@@ -208,3 +236,65 @@ def launch_paired(name: str, mask: torch.Tensor, pe: torch.Tensor, po: torch.Ten
     cuda_build.check(status, name)
     cuda_build.LAUNCHES[name] += 1
     return out
+
+
+def spmm_cases(dg, params):
+    """K6's cases on a sparse-regime device graph: (label, P_flat, forward?,
+    layout) for every edge type and both layers, the forward over the
+    projected stack and the backward over a seeded cotangent on the
+    transposed layout, with the sparse path's own operands."""
+    from decagon_tpu_torch.models.encoder import _project, encode_layer
+
+    h1 = encode_layer(params, dg, "enc1", dg.features, True, "pallas")
+    gen = torch.Generator(device=dg.device).manual_seed(11)
+    cases = []
+    for key, adj in sorted(dg.adj.items()):
+        src = key.split(",")[1]
+        for layer, level, feat in (("layer 1", "enc1", dg.features[src]),
+                                   ("layer 2", "enc2", h1[src])):
+            p = _project(feat, params[level][key])
+            h = p.shape[-1]
+            cases.append((f"({key}) {layer} forward", p.reshape(-1, h).contiguous(), True,
+                          adj.tiles_fwd))
+            ct = torch.randn((adj.n_rows, h), generator=gen, device=dg.device)
+            cases.append((f"({key}) {layer} backward", ct, False, adj.tiles_bwd))
+    return cases
+
+
+def sddmm_cases(dg, params, emb, splits, seed, shuffled=False):
+    """K5's cases: (label, z_rows, z_cols, ks, rows, cols, decoder kwargs).
+    DEDICOM over the pooled drug-drug validation sweep (positives and
+    negatives of every (1,1) relation, relation by relation, as
+    ``evaluate_all_drug_drug`` scores them); with ``shuffled``, the same
+    sweep in a seeded random order; bilinear over as many random PPI
+    pairs, on relations 0 and 1 of (0,0)."""
+    import numpy as np
+
+    parts = [
+        (k, e) for (i, j, k), sp in sorted(splits.items()) if (i, j) == (1, 1)
+        for e in (sp.val, sp.val_false)
+    ]
+    ks = np.concatenate([np.full(e.shape[0], k, np.int32) for k, e in parts])
+    edges = np.concatenate([e for _, e in parts]).astype(np.int32)
+    dev = emb["1"].device
+    ks, rows, cols = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (ks, edges[:, 0], edges[:, 1])
+    )
+    b = ks.numel()
+    dd = params["dec"]["1,1"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_p = dg.num_nodes[0]
+    pk = torch.randint(0, 2, (b,), generator=g, device=dev, dtype=torch.int32)
+    pr = torch.randint(0, n_p, (b,), generator=g, device=dev, dtype=torch.int32)
+    pc = torch.randint(0, n_p, (b,), generator=g, device=dev, dtype=torch.int32)
+    z1, z0 = emb["1"].contiguous(), emb["0"].contiguous()
+    ded = dict(name="dedicom", glb=dd["global"], rel_diag=dd["local_diag"])
+    cases = [("dedicom (1,1) validation sweep", z1, z1, ks, rows, cols, ded)]
+    if shuffled:
+        perm = torch.randperm(b, generator=torch.Generator().manual_seed(seed)).to(dev)
+        cases.append(("dedicom (1,1) validation sweep, shuffled", z1, z1,
+                      *(a[perm].contiguous() for a in (ks, rows, cols)), ded))
+    cases.append(("bilinear (0,0) random pairs", z0, z0, pk, pr, pc,
+                  dict(name="bilinear", rel_full=params["dec"]["0,0"]["relation"])))
+    return cases

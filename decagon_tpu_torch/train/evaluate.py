@@ -218,7 +218,7 @@ class AccuracyEvaluator:
         # once: the splits do not change between evaluations.
         self._staged: Dict = {}
         self._score_fns = {
-            et: make_emb_scores(model, et) for et in graph.edge_types
+            et: make_emb_scores(model, et, self.device) for et in graph.edge_types
         }
         self._drug_drug = max(
             (et for et in graph.edge_types if et[0] == et[1]),

@@ -28,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from decagon_tpu_torch import DeviceLike
 from decagon_tpu_torch.graph.container import EdgeType
 from decagon_tpu_torch.graph.device import DeviceGraph, etkey
 from decagon_tpu_torch.models import decoders as dec
@@ -39,6 +40,7 @@ from decagon_tpu_torch.ops.optim import (
     fused_adam_apply,
     tree_map,
 )
+from decagon_tpu_torch.ops.sddmm_pallas import MAX_DIM as SDDMM_MAX_DIM
 from decagon_tpu_torch.ops.sddmm_pallas import sddmm_edges
 from decagon_tpu_torch.train.negatives import sample_unigram
 
@@ -559,7 +561,19 @@ def make_embed_fn(model: DecagonModel) -> Callable:
     return embed
 
 
-def make_emb_scores(model: DecagonModel, edge_type: EdgeType) -> Callable:
+def _require_card(device: torch.device) -> None:
+    """``sddmm_impl="pallas"`` forces the kernel: raise off the card, as the
+    JAX package raises off its accelerator."""
+    if device.type != "cuda":
+        raise ValueError(
+            f"sddmm_impl='pallas' runs the CUDA kernel and needs a CUDA device (got "
+            f"{device.type!r}); use 'auto' or 'jnp'"
+        )
+
+
+def make_emb_scores(
+    model: DecagonModel, edge_type: EdgeType, device: DeviceLike = None
+) -> Callable:
     """Scorer over precomputed embeddings with a per-edge relation index:
     ``scores(params, embeddings, ks, rows, cols) -> sigmoid
     probabilities`` of the same shape as ``ks``.
@@ -567,43 +581,76 @@ def make_emb_scores(model: DecagonModel, edge_type: EdgeType) -> Callable:
     Index tensors may be flat ``[B]`` or chunked ``[n_chunks, C]``; chunks
     are scored one after another, which bounds the plain version's
     gathered per-edge factors (bilinear gathers a [C, d, d] stack).
-    ``sddmm_impl``: "auto" (the CUDA kernel for CUDA tensors, its plain
-    version for CPU tensors, at ``sddmm_precision``) or "jnp" (the plain
-    gather-and-multiply path of ``models/decoders.py`` on any device, in
-    f32, as the JAX package's jnp path ignores the precision).
+    ``sddmm_impl``, the JAX package's four values:
+
+    * "auto": the CUDA kernel (K5, or K5-bf16 at ``sddmm_precision=
+      "default"``) for CUDA tensors, its plain version for CPU tensors;
+    * "jnp": the plain gather-and-multiply path of ``models/decoders.py``
+      on any device, in f32, as the JAX package's jnp path ignores the
+      precision;
+    * "pallas": the kernel, always.  It needs the card: ``ValueError``
+      where the embeddings are not CUDA tensors (when the scorer is built
+      if ``device`` is given, else at the first call), and where the
+      embedding width exceeds the kernel's 128;
+    * "pallas_interpret": the JAX package's interpret mode, which has no
+      counterpart here: ``ValueError`` naming "jnp".
     """
     name = model.graph_meta.decoder_name(edge_type)
     et_key = etkey(edge_type)
     row_t, col_t = str(edge_type[0]), str(edge_type[1])
     impl = model.config.sddmm_impl
-    if impl not in ("auto", "jnp"):
-        raise NotImplementedError(
-            f"sddmm_impl {impl!r} is not ported; use 'auto' or 'jnp'"
+    if impl == "pallas_interpret":
+        raise ValueError(
+            "sddmm_impl='pallas_interpret' (the JAX package's interpret mode) has no "
+            "counterpart in the port; use 'jnp' for the plain path"
         )
+    if impl not in ("auto", "jnp", "pallas"):
+        raise ValueError(
+            f"sddmm_impl must be 'auto', 'jnp', 'pallas' or 'pallas_interpret', not {impl!r}"
+        )
+    if impl == "pallas":
+        if model.config.hidden2 > SDDMM_MAX_DIM:
+            raise ValueError(
+                f"sddmm_impl='pallas': embedding width {model.config.hidden2} exceeds the "
+                f"kernel's {SDDMM_MAX_DIM}; use 'jnp' or 'auto'"
+            )
+        if device is not None:
+            _require_card(torch.device(device))
     precision = model.config.sddmm_precision
 
-    def one(params, embeddings, ks, rows, cols):
+    def tables(params, embeddings):
+        """The kernel's operands, cast to bf16 once a scoring pass at
+        "default" (K5-bf16 reads bf16 tables)."""
         dp = params["dec"][et_key]
-        if impl == "auto":
-            return sddmm_edges(
-                embeddings[row_t].contiguous(), embeddings[col_t].contiguous(),
-                ks, rows, cols,
-                name=name,
-                glb=dp.get("global"),
-                rel_diag=dp.get("local_diag", dp.get("relation_diag")),
-                rel_full=dp.get("relation"),
-                precision=precision,
-            )
+        t = dict(
+            z_rows=embeddings[row_t].contiguous(), z_cols=embeddings[col_t].contiguous(),
+            glb=dp.get("global"), rel_diag=dp.get("local_diag", dp.get("relation_diag")),
+            rel_full=dp.get("relation"),
+        )
+        if precision == "default":
+            cast = {}
+            t = {k: None if v is None else cast.setdefault(id(v), v.to(torch.bfloat16))
+                 for k, v in t.items()}
+        return t
+
+    def one(params, embeddings, t, ks, rows, cols):
+        if impl != "jnp":
+            return sddmm_edges(t["z_rows"], t["z_cols"], ks, rows, cols, name=name,
+                               glb=t["glb"], rel_diag=t["rel_diag"], rel_full=t["rel_full"],
+                               precision=precision)
         z_rows = embeddings[row_t][rows.long()]
         z_cols = embeddings[col_t][cols.long()]
-        return dec.score_edges(dp, name, ks.long(), z_rows, z_cols)
+        return dec.score_edges(params["dec"][et_key], name, ks.long(), z_rows, z_cols)
 
     @torch.no_grad()
     def scores(params, embeddings, ks, rows, cols):
+        if impl == "pallas":
+            _require_card(embeddings[row_t].device)
+        t = tables(params, embeddings) if impl != "jnp" else None
         if ks.dim() == 1:
-            return torch.sigmoid(one(params, embeddings, ks, rows, cols))
+            return torch.sigmoid(one(params, embeddings, t, ks, rows, cols))
         return torch.stack([
-            torch.sigmoid(one(params, embeddings, k, r, c))
+            torch.sigmoid(one(params, embeddings, t, k, r, c))
             for k, r, c in zip(ks, rows, cols)
         ])
 

@@ -69,8 +69,8 @@ class Trainer:
         ported and raises."""
         if mesh is not None:
             raise NotImplementedError(
-                "Trainer(mesh=...) is not ported yet (ROADMAP queue 1, item 6: "
-                "mesh parallelism on torch.distributed)"
+                "Trainer(mesh=...) is not ported yet: mesh parallelism on torch.distributed "
+                "belongs to the port's parallel/ module, which does not exist yet"
             )
         self.model = model
         self.graph = graph

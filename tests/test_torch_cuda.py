@@ -29,6 +29,8 @@ its outputs to bf16 after such sums, so the paired backward's bf16 rule
 (``2^-7 |want| + 1e-4 max|want|``); two calls of each are bitwise equal.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -47,8 +49,14 @@ from decagon_tpu_torch.ops.spmm_paired import (
 )
 from decagon_tpu_torch.ops.optim import adam_onepass, adam_onepass_ref
 from decagon_tpu_torch.ops.sddmm_pallas import sddmm_edges, sddmm_plain
-from decagon_tpu_torch.ops.spmm_pallas import _SpmmTiled, spmm_tiled, spmm_tiled_ref
+from decagon_tpu_torch.ops.spmm_pallas import (
+    _SpmmTiled,
+    launch_plan,
+    spmm_tiled,
+    spmm_tiled_ref,
+)
 from decagon_tpu_torch.ops.tiling import SEGMENT, build_tiles
+from tests.torch_k6_order import spmm_tiled_ordered
 from decagon_tpu_torch.scripts import (
     probe_int8_bw,
     probe_paired_bwd_idioms,
@@ -301,6 +309,108 @@ def test_sddmm_kernel_scores_nan_out_of_range(cuda_device):
     assert np.isfinite(np.delete(got, [2, 4])).all()
 
 
+def _sorted_world(seed, n_rel, d, b, device, shuffled):
+    """A sweep over ``n_rel`` relations: edges grouped relation by relation
+    (as ``AccuracyEvaluator`` stages them) or shuffled."""
+    w = _world(seed, n_r=300, n_c=200, n_rel=n_rel, d=d, b=b, device="cpu")
+    w["ks"] = torch.sort(w["ks"]).values
+    if shuffled:
+        w["ks"] = w["ks"][torch.randperm(b, generator=torch.Generator().manual_seed(seed))]
+    return {k: v.to(device) for k, v in w.items()}
+
+
+@pytest.mark.parametrize("shuffled", [False, True], ids=["sorted", "shuffled"])
+@pytest.mark.parametrize("n_rel", [2, 963])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("d", [8, 32, 100])
+@pytest.mark.parametrize("name", NAMES)
+def test_sddmm_kernel_relation_orders(cuda_device, name, d, precision, n_rel, shuffled):
+    """Relation indices sorted (a block stages its few relations) and
+    shuffled (a block over many relations reads them from global memory),
+    over 2 and 963 relations: each within the scorer's tolerance of the
+    plain version, in input order, two calls equal bit for bit."""
+    w = _sorted_world(d + n_rel, n_rel, d, 6000, cuda_device, shuffled)
+    run = lambda: _score(lambda *a, **k: sddmm_edges(*a, **k, precision=precision), w, name)  # noqa: E731
+    got, again = run(), run()
+    want = _score(lambda *a, **k: sddmm_plain(*a, **k, precision=precision), w, name)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_sddmm_kernel_takes_unaligned_tables(cuda_device, name):
+    """Tables that start off 16-byte alignment take the scalar loads (at
+    "default" the wrapper casts them to new bf16 tables first)."""
+    w = _world(5, n_r=50, n_c=40, n_rel=7, d=32, b=3000, device=cuda_device)
+    for key in ("z_r", "z_c", "rel_diag", "glb", "rel_full"):
+        t = w[key]
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        w[key] = buf[1:].view(t.shape).copy_(t)
+        assert w[key].data_ptr() % 16 != 0
+    for precision in ("highest", "default"):
+        got = _score(lambda *a, **k: sddmm_edges(*a, **k, precision=precision), w, name)
+        want = _score(lambda *a, **k: sddmm_plain(*a, **k, precision=precision), w, name)
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("shuffled", [False, True], ids=["sorted", "shuffled"])
+@pytest.mark.parametrize("n_rel", [2, 963])
+@pytest.mark.parametrize("d", [8, 32, 100])
+@pytest.mark.parametrize("name", NAMES)
+def test_sddmm_kernel_bf16_tables(cuda_device, name, d, n_rel, shuffled, aligned):
+    """K5-bf16 on bf16 tables (16-byte loads of 8 elements where d % 8 == 0
+    and the rows are aligned, else one element at a time) gives the scores
+    of the plain version on the f32 tables at "default", which rounds them
+    to the same values; two calls equal bit for bit."""
+    w = _sorted_world(2 * d + n_rel, n_rel, d, 6000, cuda_device, shuffled)
+    b = dict(w)
+    for key in ("z_r", "z_c", "rel_diag", "glb", "rel_full"):
+        t = w[key].to(torch.bfloat16)
+        if not aligned:
+            buf = torch.empty(t.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+            t = buf[1:].view(t.shape).copy_(t)
+            assert t.data_ptr() % 16 != 0
+        b[key] = t
+    before = cuda_build.LAUNCHES["sddmm_bf16"]
+    run = lambda: _score(lambda *a, **k: sddmm_edges(*a, **k, precision="default"), b, name)  # noqa: E731
+    got, again = run(), run()
+    assert cuda_build.LAUNCHES["sddmm_bf16"] == before + 2
+    want = _score(lambda *a, **k: sddmm_plain(*a, **k, precision="default"), w, name)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_sddmm_impl_pallas_launches_the_kernel(cuda_device):
+    """``sddmm_impl="pallas"`` on CUDA embeddings scores through K5 (and
+    K5-bf16 at "default"), as "auto" does, and builds with the device named."""
+    from types import SimpleNamespace
+
+    from decagon_tpu_torch.models.model import ModelConfig
+    from decagon_tpu_torch.train.step import make_emb_scores
+
+    w = _world(6, n_r=40, n_c=40, n_rel=3, d=16, b=500, device=cuda_device)
+    params = {"dec": {"1,1": {"global": w["glb"], "local_diag": w["rel_diag"]}}}
+    emb = {"1": w["z_r"]}
+    for precision, counter in (("highest", "sddmm"), ("default", "sddmm_bf16")):
+        model = SimpleNamespace(
+            config=ModelConfig(hidden2=16, sddmm_impl="pallas", sddmm_precision=precision),
+            graph_meta=SimpleNamespace(decoder_name=lambda et: "dedicom"),
+        )
+        scores = make_emb_scores(model, (1, 1), device=cuda_device)
+        before = cuda_build.LAUNCHES[counter]
+        got = scores(params, emb, w["ks"], w["rows"], w["cols"])
+        assert cuda_build.LAUNCHES[counter] == before + 1
+        model.config = ModelConfig(hidden2=16, sddmm_precision=precision)
+        want = make_emb_scores(model, (1, 1))(params, emb, w["ks"], w["rows"], w["cols"])
+        assert torch.equal(got, want)
+
+
 ADAM = dict(s1=1.0 / (1 - 0.9 ** 3), s2=1.0 / (1 - 0.999 ** 3), lr=1e-3, b1=0.9, b2=0.999,
             eps=1e-8)
 
@@ -382,7 +492,8 @@ def test_spmm_tiled_kernel_matches_plain(cuda_device, h, precision):
     """Forward and transposed layouts, rows of one and of many segments
     (a row of more than 10,000 edges), empty rows, duplicate edges."""
     tiles, p = _csr_world(3000, 500, 40_000, h, cuda_device, long_row=12_000)
-    assert tiles.num_slots > 0 and int(tiles.row_ptr.diff().eq(0).sum()) >= 50
+    assert tiles.num_slots > 0 and tiles.row_chunks.shape[0] > 0
+    assert int(tiles.row_ptr.diff().eq(0).sum()) >= 50
     before = cuda_build.LAUNCHES["spmm_tiled"]
     got = spmm_tiled(p, tiles, precision)
     again = spmm_tiled(p, tiles, precision)
@@ -408,6 +519,95 @@ def test_spmm_tiled_kernel_bf16_input_and_views(cuda_device):
     _hold_rel(spmm_tiled(view, tiles), spmm_tiled_ref(view, tiles))
     empty = build_tiles(np.zeros(0), np.zeros(0), np.zeros(0), 700, 90).to(cuda_device)
     assert torch.equal(spmm_tiled(p, empty), torch.zeros((90, 64), device=cuda_device))
+
+
+def _rows_world(h, device, window, seed=0):
+    """Rows of 0, 1, 7, 300 and 5,000 edges (each length four times, and
+    200 more rows of 7; the long ones over a ``window``-cut schedule) from
+    a 6,000-row table."""
+    rng = np.random.default_rng(seed + h)
+    lengths = [0, 1, 7, 300, 5000] * 4 + [7] * 200
+    dst = np.repeat(np.arange(len(lengths)), lengths)
+    src = rng.integers(0, 6000, dst.size)
+    vals = rng.normal(size=dst.size).astype(np.float32)
+    p = torch.from_numpy(rng.normal(size=(6000, h)).astype(np.float32)).to(device)
+    return build_tiles(src, dst, vals, 6000, len(lengths), window=window).to(device), p
+
+
+@pytest.mark.parametrize("window", [0, 700])
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("h", [1, 32, 64, 96])
+def test_spmm_tiled_kernel_row_lengths(cuda_device, h, precision, p_dtype, window):
+    """Short rows (0, 1 and 7 edges: the row pass) and long ones (300 and
+    5,000: segments and their partials), every width and table type:
+    within ``1e-5`` of the largest plain output, equal bit for bit to the
+    plain version in the kernel's own order (``spmm_tiled_ordered``), and
+    two calls equal."""
+    tiles, p = _rows_world(h, cuda_device, window)
+    p = p.to(p_dtype)
+    assert tiles.multi_row.numel() == 8 and tiles.num_segments >= 4 * (5000 // SEGMENT)
+    got, again = spmm_tiled(p, tiles, precision), spmm_tiled(p, tiles, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _hold_rel(got, spmm_tiled_ref(p, tiles, precision))
+    assert torch.equal(got, spmm_tiled_ordered(p, tiles, precision))
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("h", [1, 32, 64, 96])
+def test_spmm_tiled_kernel_staged_table(cuda_device, h, precision, p_dtype):
+    """A narrow table that the row pass copies into shared memory (rounded
+    to bf16 at "default"), with short rows of 0 to 12 edges and one long
+    row (through device memory, rounded in registers): the
+    same bits as the plain version in the kernel's order, two calls
+    equal, within 1e-5 of ``spmm_tiled_ref``."""
+    rng = np.random.default_rng(h)
+    lengths = np.concatenate([rng.integers(0, 13, 12_000), [3000]])
+    dst = np.repeat(np.arange(lengths.size), lengths)
+    src = rng.integers(0, 64, dst.size)
+    vals = rng.normal(size=dst.size).astype(np.float32)
+    tiles = build_tiles(src, dst, vals, 64, lengths.size).to(cuda_device)
+    p = torch.from_numpy(rng.normal(size=(64, h)).astype(np.float32)).to(cuda_device).to(p_dtype)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert launch_plan(tiles, h, p.data_ptr(), p_dtype == torch.bfloat16,
+                       precision == "default", sms)[2]
+    got, again = spmm_tiled(p, tiles, precision), spmm_tiled(p, tiles, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, spmm_tiled_ordered(p, tiles, precision))
+    _hold_rel(got, spmm_tiled_ref(p, tiles, precision))
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_spmm_tiled_kernel_unaligned_views(cuda_device, precision):
+    """Tables whose rows start off 16-byte alignment (f32 and bf16) take
+    narrower loads and give the same bits as the aligned copy."""
+    tiles, p = _rows_world(64, cuda_device, 0, seed=1)
+    for dtype, shift in ((torch.float32, 1), (torch.float32, 2), (torch.bfloat16, 1),
+                         (torch.bfloat16, 4)):
+        q = p.to(dtype)
+        buf = torch.empty(q.numel() + shift, dtype=dtype, device=cuda_device)
+        view = buf[shift:].view(q.shape).copy_(q)
+        assert view.data_ptr() % 16 != 0
+        assert torch.equal(spmm_tiled(view, tiles, precision), spmm_tiled(q, tiles, precision))
+
+
+def test_spmm_tiled_kernel_nan_for_a_source_out_of_range(cuda_device):
+    """A source index past the table (only a hand-made layout has one)
+    makes its row NaN, short or long, and leaves the others."""
+    tiles, p = _rows_world(32, cuda_device, 0, seed=2)
+    row_ptr = tiles.row_ptr.cpu().numpy()
+    col = tiles.col.clone()
+    short_row, long_row = 2, 4  # 7 and 5,000 edges
+    col[int(row_ptr[short_row])] = 6000
+    col[int(row_ptr[long_row]) + 4321] = -1
+    bad = dataclasses.replace(tiles, col=col)
+    got = spmm_tiled(p, bad).cpu()
+    assert torch.isnan(got[[short_row, long_row]]).all()
+    others = [d for d in range(tiles.n_dst) if d not in (short_row, long_row)]
+    assert torch.isfinite(got[others]).all()
 
 
 def test_spmm_tiled_autograd_kernel_matches_plain(cuda_device):

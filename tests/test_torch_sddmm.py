@@ -128,9 +128,11 @@ def test_sddmm_plain_default_matches_interpret_kernel(name):
 
 
 def test_sddmm_rejects_unported_options():
-    """``sddmm_precision="default"`` is ported now: ``make_emb_scores``
-    builds with it; what still raises is an unknown decoder or precision
-    and an unported ``sddmm_impl``."""
+    """``sddmm_precision="default"`` is ported: ``make_emb_scores`` builds
+    with it; what raises is an unknown decoder or precision, and, as in
+    the JAX package off its accelerator, ``sddmm_impl="pallas"`` where the
+    embeddings are not on the card (``ValueError``; this test once
+    expected ``NotImplementedError``, before "pallas" was ported)."""
     w = _world(2, n_r=10, n_c=10, n_rel=2, d=8, shape=(4,))
     t = {k: torch.from_numpy(v) for k, v in w.items()}
     args = (t["z_r"], t["z_c"], t["ks"], t["rows"], t["cols"])
@@ -140,11 +142,89 @@ def test_sddmm_rejects_unported_options():
     )
     assert make_emb_scores(model, (1, 1)) is not None
     model.config = ModelConfig(sddmm_impl="pallas")
-    with pytest.raises(NotImplementedError):
-        make_emb_scores(model, (1, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        make_emb_scores(model, (1, 1), device="cpu")
     with pytest.raises(ValueError):
         sddmm_edges(*args, name="transe")
     with pytest.raises(ValueError):
         sddmm_edges(*args, name="dedicom", glb=t["glb"], rel_diag=t["diag"], precision="fast")
     with pytest.raises(ValueError):
         ModelConfig(sddmm_precision="fast")
+
+
+def _scorer_model(**kw):
+    return SimpleNamespace(
+        config=ModelConfig(**kw),
+        graph_meta=SimpleNamespace(decoder_name=lambda et: "dedicom"),
+    )
+
+
+def _dedicom_params(w):
+    return {"dec": {"1,1": {"global": torch.from_numpy(w["glb"]),
+                            "local_diag": torch.from_numpy(w["diag"])}}}
+
+
+def test_sddmm_impl_pallas_raises_off_the_card():
+    """"pallas" forces the kernel: with no device named at build time the
+    scorer builds and raises ``ValueError`` at its first call on CPU
+    tensors, naming "auto" and "jnp", as the JAX package raises off its
+    accelerator; "auto" and "jnp" score the same inputs on the CPU."""
+    w = _world(6, n_r=12, n_c=12, n_rel=3, d=8, shape=(5,))
+    params = _dedicom_params(w)
+    emb = {"1": torch.from_numpy(w["z_r"])}
+    idx = [torch.from_numpy(w[k]) for k in ("ks", "rows", "cols")]
+    scores = make_emb_scores(_scorer_model(sddmm_impl="pallas"), (1, 1))
+    with pytest.raises(ValueError, match="'auto' or 'jnp'"):
+        scores(params, emb, *idx)
+    with pytest.raises(ValueError, match="128"):
+        make_emb_scores(_scorer_model(sddmm_impl="pallas", hidden2=129), (1, 1))
+    auto = make_emb_scores(_scorer_model(sddmm_impl="auto"), (1, 1))(params, emb, *idx)
+    jnp_ = make_emb_scores(_scorer_model(sddmm_impl="jnp"), (1, 1))(params, emb, *idx)
+    np.testing.assert_allclose(auto.numpy(), jnp_.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_sddmm_impl_pallas_interpret_names_jnp(device):
+    """The JAX package's interpret mode has no counterpart in the port: the
+    scorer raises when it is built, on any device, and names "jnp" (as the
+    spmm interpret modes name their ``_ref`` impls); an unknown value
+    raises too."""
+    with pytest.raises(ValueError, match="'jnp'"):
+        make_emb_scores(_scorer_model(sddmm_impl="pallas_interpret"), (1, 1), device=device)
+    with pytest.raises(ValueError, match="sddmm_impl"):
+        make_emb_scores(_scorer_model(sddmm_impl="fast"), (1, 1), device=device)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_emb_scores_default_casts_tables_once(name, monkeypatch):
+    """At ``sddmm_precision="default"`` the scorer casts its tables to bf16
+    once a scoring pass (K5-bf16 reads bf16 tables) and hands the same
+    tensors to every chunk; the scores keep their input order and equal,
+    bit for bit, the plain version's on the f32 tables, which rounds them
+    to the same values."""
+    from decagon_tpu_torch.ops.sddmm_pallas import sddmm_plain
+    from decagon_tpu_torch.train import step
+
+    w = _world(8, n_r=40, n_c=40, n_rel=5, d=16, shape=(3, 64))
+    t = {k: torch.from_numpy(v) for k, v in w.items()}
+    params = {"dec": {"1,1": {"global": t["glb"], "local_diag": t["diag"],
+                              "relation_diag": t["diag"], "relation": t["full"]}}}
+    seen = []
+
+    def recording(*args, **kw):
+        seen.append([args[0], args[1]] + [kw[k] for k in ("glb", "rel_diag", "rel_full")])
+        return sddmm_edges(*args, **kw)
+
+    monkeypatch.setattr(step, "sddmm_edges", recording)
+    model = SimpleNamespace(config=ModelConfig(hidden2=16, sddmm_precision="default"),
+                            graph_meta=SimpleNamespace(decoder_name=lambda et: name))
+    got = make_emb_scores(model, (1, 1))(params, {"1": t["z_r"]}, t["ks"], t["rows"], t["cols"])
+    assert len(seen) == 3
+    for call in seen:
+        assert all(a is b for a, b in zip(call, seen[0]))
+        assert all(x.dtype == torch.bfloat16 for x in call if x is not None)
+    want = torch.sigmoid(sddmm_plain(
+        t["z_r"], t["z_r"], t["ks"], t["rows"], t["cols"], name=name, glb=t["glb"],
+        rel_diag=t["diag"], rel_full=t["full"] if name == "bilinear" else None,
+        precision="default"))
+    assert torch.equal(got, want)

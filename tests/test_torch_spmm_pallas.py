@@ -12,6 +12,8 @@ to bf16 and every product of two bf16 values is exact, so a larger gap
 would mean the contract was misread.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +24,15 @@ from decagon_tpu.ops.spmm_pallas import _spmm_pallas_flat_op, _spmm_pallas_op
 from decagon_tpu.ops.spmm_pallas import spmm_tiled as jax_spmm_tiled
 from decagon_tpu.ops.tiling import build_tiles as jax_build_tiles
 from decagon_tpu_torch.ops import cuda_build
-from decagon_tpu_torch.ops.spmm_pallas import _SpmmTiled, spmm_pallas, spmm_tiled
-from decagon_tpu_torch.ops.tiling import build_tiles
+from decagon_tpu_torch.ops.spmm_pallas import (
+    _SpmmTiled,
+    launch_plan,
+    spmm_pallas,
+    spmm_tiled,
+    spmm_tiled_ref,
+)
+from decagon_tpu_torch.ops.tiling import SEGMENT, build_tiles
+from tests.torch_k6_order import spmm_tiled_ordered
 
 PRECISIONS = {"highest": jax.lax.Precision.HIGHEST, "default": jax.lax.Precision.DEFAULT}
 
@@ -126,3 +135,62 @@ def test_spmm_pallas_raises_without_layouts():
     tiles = build_tiles(np.array([0]), np.array([0]), np.array([1.0]), 4, 4)
     with pytest.raises(ValueError):
         spmm_tiled(torch.zeros((4, 2)), tiles, "fast")
+
+
+@pytest.mark.parametrize("window", [0, 150])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_kernel_summation_order_matches_plain(precision, window):
+    """``spmm_tiled_ordered`` (K6's order: short rows in edge order, a long
+    row's segments, then its slots in order) against ``spmm_tiled_ref``
+    (one ``index_add_``), on rows short and long (``SEGMENT`` edges and
+    past it, cut at source windows or not), and against the JAX kernel in
+    interpret mode.  Both sum the same rounded messages in f32 in other
+    orders, so each element is held to 1e-6 of the sum of its messages'
+    magnitudes (the scale a reordered f32 sum's error is proportional to;
+    a misplaced or missing edge would move it by a whole message)."""
+    n_src, n_dst, h = 2000, 120, 32
+    rng = np.random.default_rng(7)
+    dst = np.concatenate([rng.integers(0, 100, 4000), np.full(3 * SEGMENT + 5, 101),
+                          np.full(SEGMENT + 1, 102), np.full(SEGMENT, 103)])
+    src = rng.integers(0, n_src, dst.size)
+    vals = rng.normal(size=dst.size).astype(np.float32)
+    tiles = build_tiles(src, dst, vals, n_src, n_dst, window=window)
+    assert {101, 102} <= set(tiles.multi_row.tolist()) and tiles.num_segments >= 6
+    assert window or tiles.multi_row.tolist() == [101, 102]
+    p = torch.from_numpy(rng.normal(size=(n_src, h)).astype(np.float32))
+    got = spmm_tiled_ordered(p, tiles, precision)
+    want = spmm_tiled_ref(p, tiles, precision)
+    mags = spmm_tiled_ref(p.abs(), dataclasses.replace(tiles, val=tiles.val.abs()), precision)
+    assert bool(((got - want).abs() <= 1e-6 * mags).all())
+    jax_tiles = jax_build_tiles(src, dst, vals, n_src, n_dst, 64, 64, 64)
+    jax_out = np.asarray(jax_spmm_tiled(
+        jnp.asarray(p.numpy()), jax_tiles, interpret=True, precision=PRECISIONS[precision]
+    ))[:n_dst, :h]
+    _hold(got.numpy(), jax_out)
+
+
+def test_launch_plan_stages_small_tables_that_are_gathered_often():
+    """The row pass copies the table into shared memory only where it fits
+    (as bf16 at "default": the drug-drug backward's [645, 64] cotangent
+    fits either way, a [1000, 64] table only in bf16, PPI's [19081, 64]
+    not at all) and where its rows are gathered at least 4 times for each
+    of the card's copies; loads from device memory are 16 bytes wherever
+    the width and the alignment allow, from shared memory 4 elements."""
+    def tiles(n_src, nnz):
+        src = np.arange(nnz) % n_src
+        return build_tiles(src, np.arange(nnz) // 7, np.ones(nnz, np.float32), n_src, nnz // 7 + 1)
+
+    small = tiles(645, 4 * 132 * 645)
+    assert launch_plan(small, 64, 0, False, False, 132) == (4, 4, True)
+    assert launch_plan(small, 64, 0, False, True, 132) == (4, 4, True)
+    assert launch_plan(small, 64, 8, False, False, 132) == (2, 4, True)
+    assert launch_plan(small, 64, 0, True, False, 132) == (8, 4, True)
+    assert launch_plan(small, 96, 4, True, True, 132) == (2, 4, True)
+    assert launch_plan(small, 36, 0, False, False, 132) == (4, 4, True)
+    assert launch_plan(small, 64, 2, True, False, 132) == (1, 1, False)
+    assert not launch_plan(tiles(645, 4 * 132 * 645 - 1), 64, 0, False, False, 132)[2]
+    wider = tiles(1000, 4 * 132 * 1000)
+    assert not launch_plan(wider, 64, 0, False, False, 132)[2]
+    assert launch_plan(wider, 64, 0, False, True, 132)[2]
+    assert not launch_plan(tiles(19081, 4 * 132 * 19081), 64, 0, True, True, 132)[2]
+    assert launch_plan(tiles(645, 340_000), 1, 2, True, False, 132) == (1, 1, False)

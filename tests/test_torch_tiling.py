@@ -28,7 +28,15 @@ from decagon_tpu_torch.graph.device import build_device_graph
 from decagon_tpu_torch.graph.renumber import renumber_by_degree, restore_external_rows
 from decagon_tpu_torch.graph.split import split_graph
 from decagon_tpu_torch.graph.synthetic import make_polypharmacy_like_graph
-from decagon_tpu_torch.ops.tiling import SEGMENT, build_tiles, tiling_stats
+from decagon_tpu_torch.ops.tiling import (
+    CHUNK_EDGES,
+    CHUNK_ROWS,
+    SEGMENT,
+    SHORT,
+    WINDOW,
+    build_tiles,
+    tiling_stats,
+)
 from decagon_tpu_torch.train.checkpoint import export_ndarrays
 
 SMALL = dict(
@@ -146,9 +154,11 @@ def test_csr_holds_the_reference_tiles_edges(shape, geometry):
 
 
 def test_csr_layout_order_and_segments():
-    """Rows by ascending source, duplicates in input order; every row has
-    a segment; long rows split into ``SEGMENT``-edge segments whose slots
-    are contiguous."""
+    """Rows by ascending source, duplicates in input order; short rows (at
+    most ``SHORT`` edges, the empty one included) sit in row chunks; a
+    medium row is one segment that writes its row; a long row splits into
+    ``SEGMENT``-edge segments whose partial slots are contiguous and
+    follow its edges."""
     n_src, n_dst = 3000, 7
     rng = np.random.default_rng(2)
     dst = np.concatenate([rng.integers(0, 5, 900), np.full(2 * SEGMENT + 3, 6)])
@@ -163,23 +173,121 @@ def test_csr_layout_order_and_segments():
         # ties (duplicate sources) keep the input order, i.e. rising vals
         assert (np.lexsort(keys[::-1]) == np.arange(keys.shape[1])).all()
     assert row_ptr[6] - row_ptr[5] == 0  # node 5 has no edges
-    seg_ptr, seg_row = csr.seg_ptr.numpy(), csr.seg_row.numpy()
-    assert sorted(set(seg_row)) == list(range(n_dst)) and seg_ptr[-1] == csr.nnz
-    assert (np.diff(seg_ptr) <= SEGMENT).all() and (np.diff(seg_ptr) >= 0).all()
-    assert csr.multi_row.numpy().tolist() == [d for d in range(n_dst)
-                                              if row_ptr[d + 1] - row_ptr[d] > SEGMENT]
-    assert csr.num_slots == int((np.asarray(csr.seg_slot) >= 0).sum())
+    assert all(SHORT < row_ptr[d + 1] - row_ptr[d] <= SEGMENT for d in range(5))
+    assert csr.row_chunks.numpy().tolist() == [[5, 6, row_ptr[5], row_ptr[6]]]
+    long_segments = [[row_ptr[6] + i * SEGMENT, min(row_ptr[6] + (i + 1) * SEGMENT, row_ptr[7])]
+                     for i in range(3)]
+    assert csr.seg_edges.numpy().tolist() == [[row_ptr[d], row_ptr[d + 1]] for d in range(5)] + long_segments
+    assert csr.seg_dst.numpy().tolist() == [0, 1, 2, 3, 4, ~0, ~1, ~2]
+    assert csr.multi_row.numpy().tolist() == [6] and csr.multi_ptr.numpy().tolist() == [0, 3]
+    # n_src lies inside one source window: the cuts are every SEGMENT edges
+    assert csr.seg_order.numpy().tolist() == list(range(8)) and csr.window == WINDOW > n_src
     stats = tiling_stats(csr)
     assert stats["nnz"] == dst.size and stats["rows"] == n_dst
     assert stats["max_row"] == 2 * SEGMENT + 3
+    assert (stats["short_rows"], stats["row_chunks"], stats["long_rows"]) == (1, 1, 1)
+    assert (stats["segments"], stats["partial_slots"]) == (8, 3) == (csr.num_segments, csr.num_slots)
+
+
+def _schedule_cover(csr):
+    """Each edge's owner in the schedule, asserting the invariants on the
+    way: the row chunks hold the short rows, each once, in order, within
+    their limits; every other row's segments tile its edges in order, a
+    medium row's one segment naming the row, a long row's segments naming
+    its contiguous partial slots."""
+    row_ptr = csr.row_ptr.numpy().astype(np.int64)
+    counts = np.diff(row_ptr)
+    owner = np.full(csr.nnz, -1, np.int64)
+    chunks = csr.row_chunks.numpy().astype(np.int64)
+    rows = np.concatenate([np.arange(a, b) for a, b, _, _ in chunks] + [np.zeros(0, np.int64)])
+    assert rows.tolist() == np.flatnonzero(counts <= SHORT).tolist()
+    assert (chunks[:, 2] == row_ptr[chunks[:, 0]]).all() and (chunks[:, 3] == row_ptr[chunks[:, 1]]).all()
+    assert (chunks[:, 1] - chunks[:, 0] >= 1).all() and (chunks[:, 1] - chunks[:, 0] <= CHUNK_ROWS).all()
+    assert (chunks[:, 3] - chunks[:, 2] <= CHUNK_EDGES).all()
+    for d in rows:
+        owner[row_ptr[d]:row_ptr[d + 1]] = -2  # a short row's edge
+    edges = csr.seg_edges.numpy().astype(np.int64)
+    seg_dst, order = csr.seg_dst.numpy(), csr.seg_order.numpy()
+    assert (edges[:, 1] - edges[:, 0] >= 1).all() and (edges[:, 1] - edges[:, 0] <= SEGMENT).all()
+    assert (edges[1:, 0] >= edges[:-1, 1]).all()  # segments in edge order
+    seg_row = np.searchsorted(row_ptr, edges[:, 0], side="right") - 1
+    per_row = np.bincount(seg_row, minlength=csr.n_dst)
+    assert (per_row[counts > SHORT] >= 1).all() and (per_row[counts <= SHORT] == 0).all()
+    for s, (lo, hi) in enumerate(edges):
+        assert (owner[lo:hi] == -1).all()
+        owner[lo:hi] = s
+        assert (seg_dst[s] == seg_row[s]) == (per_row[seg_row[s]] == 1)
+    multi_row, multi_ptr = csr.multi_row.numpy(), csr.multi_ptr.numpy()
+    assert multi_row.tolist() == np.flatnonzero(per_row > 1).tolist()
+    slots = ~seg_dst[seg_dst < 0]
+    assert slots.tolist() == list(range(csr.num_slots)) and multi_ptr[-1] == csr.num_slots
+    for m, d in enumerate(multi_row):
+        mine = seg_row[seg_dst < 0][multi_ptr[m]:multi_ptr[m + 1]]
+        assert (mine == d).all() and mine.size == per_row[d]
+    assert (owner != -1).all()  # every edge lies in one short row or one segment
+    assert sorted(order.tolist()) == list(range(edges.shape[0]))
+    return owner, edges, order
+
+
+@pytest.mark.parametrize("lengths", [(0,), (7,), (SHORT,), (0, 1, 300, 7, 100)],
+                         ids=["empty", "seven", "short-limit", "mixed"])
+def test_row_chunks_respect_their_limits(lengths):
+    """Thousands of rows of one length (or a mix with medium and long rows
+    between the runs): chunks cut at ``CHUNK_ROWS`` rows and
+    ``CHUNK_EDGES`` edges, broken by every row that is not short, covering
+    every short row once."""
+    counts = np.resize(np.asarray(lengths), 3000)
+    dst = np.repeat(np.arange(counts.size), counts)
+    src = np.random.default_rng(1).integers(0, 500, dst.size)
+    csr = build_tiles(src, dst, np.ones(dst.size, np.float32), 500, counts.size)
+    _schedule_cover(csr)
+    assert tiling_stats(csr)["row_chunks"] == csr.row_chunks.shape[0] > 0
+
+
+@pytest.mark.parametrize("window", [0, 1, 37, 400, 5000])
+def test_schedule_covers_every_edge_once_in_a_fixed_order(window):
+    """Short rows and segments cover every edge exactly once; a segment
+    spans at most ``window`` source rows' window and ``SEGMENT`` edges; the
+    launch order runs window by window, then row, then slot; the layout
+    still holds the reference tiles' edges bit for bit."""
+    n_src, n_dst = 4000, 90
+    rng = np.random.default_rng(window)
+    others = np.setdiff1d(np.arange(n_dst), [40, 41])
+    dst = np.concatenate([rng.choice(others, 6000), np.full(5 * SEGMENT + 11, 3),
+                          np.full(SEGMENT + 1, 40), np.full(SEGMENT, 41)])
+    src = rng.integers(0, n_src, dst.size)
+    vals = rng.normal(size=dst.size).astype(np.float32)
+    vals[:-SEGMENT:31] = 0.0
+    csr = build_tiles(src, dst, vals, n_src, n_dst, window=window)
+    _, edges, order = _schedule_cover(csr)
+    col = csr.col.numpy().astype(np.int64)
+    assert 3 in csr.multi_row.numpy()
+    if not window:  # exactly SEGMENT edges: one segment
+        assert 41 not in csr.multi_row.numpy() and 41 in csr.seg_dst.numpy()
+    if window:
+        first_win = col[edges[:, 0]] // window
+        assert (col[edges[:, 1] - 1] // window == first_win).all()
+        rows = np.searchsorted(csr.row_ptr.numpy(), edges[:, 0], side="right") - 1
+        keys = np.stack([first_win, rows, np.arange(edges.shape[0])])[:, order]
+        assert (np.lexsort(keys[::-1]) == np.arange(order.size)).all()
+    else:
+        assert order.tolist() == list(range(edges.shape[0]))
+    assert build_tiles(src, dst, vals, n_src, n_dst, window=window).seg_order.equal(csr.seg_order)
+    want = _decode(jax_build_tiles(src, dst, vals, n_src, n_dst, 64, 64, 64))
+    np.testing.assert_array_equal(_triples(csr), want)
 
 
 def test_empty_relation():
+    """No edges: every row is short (zeros from the row pass), no segment."""
     csr = build_tiles(np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.float32), 64, 50)
-    assert csr.nnz == 0 and csr.num_segments == 50 and csr.num_slots == 0
+    assert csr.nnz == 0 and csr.num_segments == 0 and csr.multi_row.numel() == 0
     assert (csr.row_ptr.numpy() == 0).all() and tiling_stats(csr)["max_row"] == 0
+    assert tiling_stats(csr)["short_rows"] == 50
+    assert csr.row_chunks.numpy().tolist() == [[0, 50, 0, 0]]
     with pytest.raises(ValueError):
         build_tiles(np.array([64]), np.array([0]), np.array([1.0]), 64, 50)
+    with pytest.raises(ValueError):
+        build_tiles(np.array([0]), np.array([0]), np.array([1.0]), 64, 50, window=-1)
 
 
 def test_device_graph_layouts_match_reference():
