@@ -7,7 +7,9 @@ check them.
 Phases, each announced with the seconds elapsed since start:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
-2. build: ``nvcc`` builds the CUDA kernels of ``decagon_tpu_torch/csrc``;
+2. build: ``nvcc`` builds the CUDA kernels of ``decagon_tpu_torch/csrc`` and
+   ``g++`` the native host library (``decagon_tpu_torch/native``), which
+   phase 3's split draws its large negative sets with;
 3. serving state: the paper-scale polypharmacy-like graph (19,081
    proteins, 645 drugs, 963 side effects), its split, the device graph
    and seeded random weights (hidden 64 -> 32), as ``bench.py`` headlines;
@@ -101,7 +103,25 @@ Phases, each announced with the seconds elapsed since start:
    and, for P5, ``torch.sum``, with bounds; K1's phase-4 time (the sweep
    design) is printed beside P3's parts (the former WMMA design, at the
    relations a block that design took).  P6's launches are those of its
-   timing in phase 11.
+   timing in phase 11.  P1's and P4's library call is ``torch.bmm``, one a
+   half, at their shape;
+19. framework shell: ``python -m decagon_tpu_torch.cli`` as a user runs it,
+   in-process on the card: a config file for the dummy dataset (500
+   proteins, 400 drugs, 3 side effects) at full width (hidden 64 -> 32,
+   batch 512), one epoch in chunks of 50 with the iteration CSV, the
+   held-out-edge CSV, a checkpoint and the npy export; launch counters set
+   to 0 just before, read just after (logged apart from the main path's):
+   both paired kernels and K5 must launch, every metric lie in [0, 1].
+   Then ``predict.export`` from that checkpoint; the CLI's kernels held
+   against their plain versions at its own shapes, with phases 4 and 8's
+   tolerances (K1/K2 on the restored parameters, K1/K2-ds and K3/K4 on
+   the operands of its first step, K5 on its validation sweep); the
+   numpy predictor on relation 0's artifacts and recorded edges, whose
+   probabilities must equal the card evaluator's edge by edge (to
+   ``SDDMM_REL_TOL`` of the largest logit, or 1) and whose AUROC must
+   equal the evaluator's within 1e-4; and one greedy
+   selection round (``GreedyActiveLearner`` wired by ``cli.train_once``),
+   which must score through K5.
 
 The paired kernels K1/K2 (forward) and K3/K4 (backward) share one sweep
 (``decagon_tpu_torch/csrc/paired_core.cuh``): a bf16 operand pass, then
@@ -580,6 +600,13 @@ class Recorder:
     def close(self):
         self.sp.paired_fwd, self.sp.paired_bwd = self.orig
 
+    def require(self, where):
+        """Raises unless both paired edge types' keep-scale forwards and
+        both layers' backwards were recorded."""
+        if not all(r[3] is not None for r in self.fwd) or len(self.fwd) != 2 or len(self.bwd) != 4:
+            raise AssertionError(f"{where}: recorded {len(self.fwd)} ds forwards, "
+                                 f"{len(self.bwd)} backwards")
+
 
 def _batch(splits, et, k, n, seed):
     import numpy as np
@@ -699,8 +726,7 @@ def train(dg, params, model, splits, seed):
     for name in ("paired_fwd", "paired_bwd"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the training path")
-    if not all(r[3] is not None for r in rec.fwd) or len(rec.fwd) != 2 or len(rec.bwd) != 4:
-        raise AssertionError(f"recorded {len(rec.fwd)} ds forwards, {len(rec.bwd)} backwards")
+    rec.require("train")
     return counts, rec, summary, params
 
 
@@ -750,9 +776,11 @@ def step_gradients(dg, params, model, splits, seed):
     return hold_gradients("step gradient", gk, gp)
 
 
-def check_training_kernels(dg, rec):
+def check_training_kernels(dg, rec, synthetic=True):
     """K1/K2-ds and K3/K4 against their plain versions on the operands the
-    first train step gave them, plus a K > 1, N > 4096 case."""
+    first train step gave them (recorded on ``dg``'s layout, edge types
+    told apart by mask shape), plus, with ``synthetic``, a K > 1, N > 4096
+    case."""
     import torch
 
     from decagon_tpu_torch.ops.spmm_paired import (
@@ -760,7 +788,8 @@ def check_training_kernels(dg, rec):
         paired_ref_ds,
     )
 
-    names = {a.pair_mask.data_ptr(): key for key, a in dg.adj.items() if a.pair_mask is not None}
+    names = {tuple(a.pair_mask.shape): key for key, a in dg.adj.items()
+             if a.pair_mask is not None}
     fwd_rows, bwd_rows = [], []
     for p4, mask, scales, ds in rec.fwd:
         got = paired_fwd(p4, mask, scales, ds)
@@ -772,7 +801,7 @@ def check_training_kernels(dg, rec):
         err, rel = _bwd_hold(got, want, bf16=False)
         k, h, n = p4.shape[1], p4.shape[2], p4.shape[3]
         nbytes, flops = _paired_bytes_ops(mask, k, h, n, p4.numel() * 4 + ds.numel() * 4, n * h * 4)
-        row = dict(case=f"({names[mask.data_ptr()]}) layer 1 f32, keep-scales", K=k, N=n, H=h,
+        row = dict(case=f"({names[tuple(mask.shape)]}) layer 1 f32, keep-scales", K=k, N=n, H=h,
                    max_abs_err=err, rel_err=rel, bitwise_repeat=bool(torch.equal(got, again)),
                    ms=cuda_ms(lambda: paired_fwd(p4, mask, scales, ds), reps=5),
                    plain_ms=cuda_ms(lambda: paired_ref_ds(p4, mask, scales, ds), reps=3),
@@ -783,19 +812,20 @@ def check_training_kernels(dg, rec):
         log(json.dumps(row))
         fwd_rows.append(row)
 
-    g = torch.Generator().manual_seed(5)
-    k, n, h = 3, 5000, 64
-    big = dict(
-        mask=(torch.rand((k, n, n), generator=g) < 0.01).to(torch.int8).cuda(),
-        scales=torch.rand((k, 4, n), generator=g).cuda(),
-        ds=torch.where(torch.rand((k, 2, n), generator=g) < 0.9, 1 / 0.9, 0.0).float().cuda(),
-        ct=torch.randn((h, n), generator=g).cuda(),
-    )
-    cases = [(f"({names[r[1].data_ptr()]}) layer {1 if r[3] is not None else 2}, "
+    cases = [(f"({names[tuple(r[1].shape)]}) layer {1 if r[3] is not None else 2}, "
               f"{'keep-scales, f32' if r[3] is not None else 'bf16'}", *r) for r in rec.bwd]
-    cases += [(f"synthetic K={k} N={n} {lbl}", big["ct"], big["mask"], big["scales"], d, dt)
-              for lbl, d, dt in (("keep-scales, f32", big["ds"], torch.float32),
-                                 ("bf16", None, torch.bfloat16))]
+    if synthetic:
+        g = torch.Generator().manual_seed(5)
+        k, n, h = 3, 5000, 64
+        big = dict(
+            mask=(torch.rand((k, n, n), generator=g) < 0.01).to(torch.int8).cuda(),
+            scales=torch.rand((k, 4, n), generator=g).cuda(),
+            ds=torch.where(torch.rand((k, 2, n), generator=g) < 0.9, 1 / 0.9, 0.0).float().cuda(),
+            ct=torch.randn((h, n), generator=g).cuda(),
+        )
+        cases += [(f"synthetic K={k} N={n} {lbl}", big["ct"], big["mask"], big["scales"], d, dt)
+                  for lbl, d, dt in (("keep-scales, f32", big["ds"], torch.float32),
+                                     ("bf16", None, torch.bfloat16))]
     for label, ct, mask, scales, ds, dt in cases:
         got = paired_bwd(ct, mask, scales, ds, dt)
         again = paired_bwd(ct, mask, scales, ds, dt)
@@ -1348,6 +1378,8 @@ PROBES = (
      "scripts/probe_paired_idioms.py:23"),
 )
 PROBE_REPS = 3
+# Probes whose head case has a library call: two torch.bmm at their shape.
+BMM_PROBES = ("probe_paired_idioms", "probe_paired_bwd_idioms")
 
 
 def probes(device, seed, paired_rows):
@@ -1418,6 +1450,19 @@ def probes(device, seed, paired_rows):
         rows[name] = [{**checked[name][t["case"]], **t} for t in vs]
         for r in rows[name]:
             log(f"{name} {json.dumps(r)}")
+    heads = {"probe_int8_bw": "sum_int8_kb2", "probe_paired_parts": "two_dots_kb4",
+             "probe_paired_orient": "both_i8_kb4",
+             "probe_paired_bwd_idioms": f"paired_bwd_K{p4b.K_FULL}",
+             "probe_paired_idioms": f"paired_K{p1.K_FULL}_kb1"}
+    # P1's and P4's library call: K1's and K3's yardstick, one torch.bmm a
+    # half, at their shape (K = 963, N = 645, H = 64, bf16 operands).
+    q = torch.randn((2, p1.K_FULL, p1.H, p1.N), generator=g, device=device).to(torch.bfloat16)
+    bmm_ms = bmm_library_ms(m963, q[0], q[1])
+    del q
+    for name in BMM_PROBES:
+        for r in rows[name]:
+            if r["case"] == heads[name]:
+                r["library_ms"] = bmm_ms
     k1_ms = {r["case"]: r["ms"] for r in paired_rows if r["case"].startswith("(1,1)")}
     parts = {r["case"]: r["ms"] for r in rows["probe_paired_parts"]}
     log(f"K1, the sweep design, at (1,1), phase 4: {json.dumps(k1_ms)} (layer 1 scales f32 "
@@ -1425,13 +1470,168 @@ def probes(device, seed, paired_rows):
         "relations a block, bf16 operands, no scales: "
         + ", ".join(f"{m} {parts[f'{m}_kb{k1}']:.3f}" for m in p3.MODES)
         + f" ms; P5 int8 read: {rows['probe_int8_bw'][0]['ms']:.3f} ms")
-    log(f"probe launches {json.dumps({n: counts[n] for n in groups})}; max memory allocated "
+    log(f"probe launches {json.dumps({n: counts[n] for n in groups})}; two torch.bmm at "
+        f"P1's and P4's shape {bmm_ms:.3f} ms; max memory allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    heads = {"probe_int8_bw": "sum_int8_kb2", "probe_paired_parts": "two_dots_kb4",
-             "probe_paired_orient": "both_i8_kb4",
-             "probe_paired_bwd_idioms": f"paired_bwd_K{p4b.K_FULL}",
-             "probe_paired_idioms": f"paired_K{p1.K_FULL}_kb1"}
     return counts, rows, heads
+
+
+# Phase 19: the CLI's config, the dummy dataset at full width.
+SHELL_CONF = dict(
+    DataSetType="DecagonDummyData", ActiveLearnerType="NoopActiveLearner", NumProteins=500,
+    NumDrugs=400, NumDrugDrugRelationTypes=3, hidden1=64, hidden2=32, batch_size=512,
+    NumEpochs=1, ScanChunk=50, NumIterationsPerLog=50, NumIterationsPerCheckpoint=10**9,
+    MaxCheckpointsToKeep=1, ValFraction=0.05, TestFraction=0.0,
+)
+# The predictor (numpy, f64 products of the exported f32 tables) against
+# the card's evaluator (f32 through K5) on the same edges.
+SHELL_AUROC_TOL = 1e-4
+
+
+def framework_shell(device, seed):
+    """The port's CLI on the card, as a user runs it: ``cli.main`` on a
+    config file (launch counters set to 0 just before, read just after),
+    the export from its checkpoint, the numpy predictor against the card's
+    evaluator on relation 0's recorded edges, and one greedy selection
+    round through the scorer the CLI wires.  The kernels the CLI ran are
+    held against their plain versions at its own shapes: K1/K2 on the
+    restored parameters, K1/K2-ds and K3/K4 on the operands of its first
+    step, K5 on its validation sweep; the evaluator's probabilities
+    against the predictor's edge by edge.  (Phase 2 asserts that the
+    native library, which the CLI's split uses, was built.)"""
+    import csv
+    import glob
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from decagon_tpu_torch import cli, native
+    from decagon_tpu_torch.config import Config
+    from decagon_tpu_torch.models.model import DecagonModel
+    from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.predict import export
+    from decagon_tpu_torch.predict.predictor import NpPredictor, PredictionsInfo
+    from decagon_tpu_torch.train.active import GreedyActiveLearner
+    from decagon_tpu_torch.train.checkpoint import Checkpointer
+    from decagon_tpu_torch.train.evaluate import AccuracyEvaluator
+    from decagon_tpu_torch.train.layout import (
+        build_dataset, build_training_device_graph, training_graph,
+    )
+    from decagon_tpu_torch.train.step import make_generator
+
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = dict(SHELL_CONF, Seed=seed, ShouldCheckpoint=True, CheckpointDirectory=f"{tmp}/ck",
+                    WriteNdarrays=True, NdarrayWriteDir=f"{tmp}/nd", NpSaveDir=f"{tmp}/export",
+                    TestEdgeFilename=f"{tmp}/edges.csv", TrainIterationResultDir=f"{tmp}/results")
+        path = f"{tmp}/conf.json"
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        rec = Recorder()
+        rec.on = True
+        try:
+            cuda_build.reset_launches()
+            t = time.perf_counter()
+            cli.main(["--config", path])
+            torch.cuda.synchronize()
+            secs["cli"] = time.perf_counter() - t
+            counts = dict(cuda_build.LAUNCHES)
+        finally:
+            rec.close()
+        for name in ("paired_fwd", "paired_bwd", "sddmm"):
+            if counts[name] <= 0:
+                raise AssertionError(f"the CLI never launched {name}")
+        rec.require("the CLI's first step")
+        (log_path,) = glob.glob(f"{tmp}/results/decagon_iteration_results_*.csv")
+        with open(log_path) as f:
+            rows = list(csv.DictReader(f))
+        for row in rows:
+            for key in ("AUROC", "AUPRC", "APK"):
+                v = float(row[key])
+                if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+                    raise AssertionError(f"iteration CSV: {key} {v} outside [0, 1]")
+        log(f"CLI {secs['cli']:.2f}s: {len(rows)} iteration rows, last {rows[-1]}; launches "
+            f"(apart from the main path's) {counts}")
+
+        t = time.perf_counter()
+        export.main(["--config", path])
+        secs["export"] = time.perf_counter() - t
+        config = Config.from_json(path)
+        graph, protein_ids, drug_ids, names = build_dataset(config)
+        tg = training_graph(config, graph, protein_ids, drug_ids)
+        dg = build_training_device_graph(config, tg, device)
+        model = DecagonModel(config.model_config(), dg)
+        params = Checkpointer(conf["CheckpointDirectory"]).restore_latest(
+            {"params": model.init_params(make_generator(seed, device), dg)},
+            partial=True)["params"]
+
+        # The CLI's kernels at its own shapes (launches here are not counted).
+        paired_rows = check_paired(dg, params, model)
+        fwd_ds_rows, bwd_rows = check_training_kernels(dg, rec, synthetic=False)
+        del rec
+        evaluator = AccuracyEvaluator(model, tg.full, tg.splits, device=device)
+        emb = evaluator.embeddings(params, dg)
+        sddmm_rows, _ = check_sddmm(dg, params, emb, tg.splits, seed)
+
+        want = evaluator.evaluate(params, dg, (1, 1, 0)).auroc
+        t = time.perf_counter()
+        (edges_csv,) = glob.glob(f"{tmp}/edges-*.csv")
+        info = PredictionsInfo(conf["NpSaveDir"], edges_csv, tg.drug_ids)
+        predictor = NpPredictor(info, names[0])
+        got = predictor.predict()
+        secs["predictor"] = time.perf_counter() - t
+        # Edge by edge: the evaluator (K5, f32) against the predictor (f64
+        # numpy over the exported tables) on the predictor's edges, which
+        # index the training numbering (the config does not renumber).
+        edges = np.vstack([predictor.neg_edges, predictor.pos_edges])[:, :2]
+        card_probs = evaluator._probs(params, dg, (1, 1, 0), edges, embeddings=emb)
+        p = np.clip(got.probabilities, 1e-12, 1 - 1e-12)
+        logit_max = float(np.abs(np.log(p) - np.log1p(-p)).max())
+        prob_err = float(np.abs(card_probs - got.probabilities).max())
+        prob_bound = SDDMM_REL_TOL * max(1.0, logit_max)
+        exported = np.load(f"{conf['NpSaveDir']}/embeddings.npy")
+        logged = np.load(f"{conf['NdarrayWriteDir']}/embeddings.npy")
+        log(f"export {secs['export']:.2f}s, embeddings {exported.shape} (the logger's at the same "
+            f"step: max diff {np.abs(exported - logged).max():.3g}); predictor "
+            f"{secs['predictor']:.3f}s: AUROC {got.auroc:.6f}, evaluator {want:.6f}, AUPRC "
+            f"{got.auprc:.6f}, confusion {got.confusion_matrix.tolist()}; {len(edges)} edges' "
+            f"probabilities, K5 against the predictor: max diff {prob_err:.3g} "
+            f"(bound {prob_bound:.3g})")
+        if not abs(got.auroc - want) <= SHELL_AUROC_TOL:
+            raise AssertionError(f"predictor AUROC {got.auroc} against the evaluator's {want}")
+        if not prob_err <= prob_bound:
+            raise AssertionError(f"evaluator probabilities {prob_err:.3g} from the predictor's, "
+                                 f"past {prob_bound:.3g}")
+        del emb, evaluator, model, dg, params
+
+        greedy = Config(dict(SHELL_CONF, Seed=seed, TrainIterationResultDir=f"{tmp}/greedy"))
+        learner = GreedyActiveLearner(graph, test_set_proportion=0.3, init_train_proportion=0.5,
+                                      seed=seed)
+        masked, holdout = learner.get_update()
+        t = time.perf_counter()
+        cli.train_once(greedy, masked, holdout, "greedy", protein_ids, drug_ids, names,
+                       learner=learner)
+        secs["greedy_train"] = time.perf_counter() - t
+        before = len(learner.possibilities)
+        cuda_build.reset_launches()
+        t = time.perf_counter()
+        learner.get_update()
+        torch.cuda.synchronize()
+        secs["greedy_round"] = time.perf_counter() - t
+        greedy_counts = dict(cuda_build.LAUNCHES)
+        log(f"greedy: one epoch {secs['greedy_train']:.2f}s, a selection round over {before} "
+            f"cells {secs['greedy_round']:.2f}s, {before - len(learner.possibilities)} unmasked; "
+            f"launches {greedy_counts}")
+        if greedy_counts["sddmm"] <= 0:
+            raise AssertionError("the greedy round did not score through K5")
+    checks = {row["case"]: row["rel_err"]
+              for row in paired_rows + fwd_ds_rows + bwd_rows + sddmm_rows}
+    return dict(seconds=secs, launches=counts, greedy_launches=greedy_counts,
+                native_build_s=native.BUILD_INFO.get("seconds"), predictor_auroc=got.auroc,
+                evaluator_auroc=want, predictor_auprc=got.auprc, iteration_rows=len(rows),
+                kernel_rel_err=checks, prob_max_diff=prob_err, prob_bound=prob_bound)
 
 
 # Kernels whose first port was redesigned for the card (marked in the report).
@@ -1478,6 +1678,11 @@ def main(argv=None) -> int:
     phase("build")
     cuda_build.library()
     log(f"nvcc build {cuda_build.BUILD_INFO['seconds']:.1f}s")
+    from decagon_tpu_torch import native
+
+    if native.get_library() is None:
+        raise AssertionError("g++ failed to build the native library")
+    log(f"g++ build of the native library {native.BUILD_INFO['seconds']:.2f}s")
     for line in str(cuda_build.BUILD_INFO["ptxas"]).splitlines():
         if "Used" in line or "spill" in line:
             log("ptxas " + line.strip())
@@ -1551,6 +1756,9 @@ def main(argv=None) -> int:
     phase("probes")
     probe_counts, probe_rows, probe_heads = probes(device, args.seed, paired_rows)
 
+    phase("framework shell")
+    shell = framework_shell(device, args.seed)
+
     phase("done")
     launches = {name: counts[name] + train_counts[name] + trainer_counts[name]
                 + pallas_counts[name] + sparse_counts[name] for name in train_counts}
@@ -1589,12 +1797,13 @@ def main(argv=None) -> int:
                      [r for r in adam_rows if r["dtype"] == "bfloat16"]),
     ] + [
         kernel_entry(name, source, replaces, probe_counts[name], head,
-                     library_rows=head if name == "probe_int8_bw" else None,
+                     library_rows=head if name in ("probe_int8_bw",) + BMM_PROBES else None,
                      cases=probe_rows[name])
         for name, source, replaces in PROBES
         for head in [[r for r in probe_rows[name] if r["case"] == probe_heads[name]]]
     ], "train": train_summary, "trainer": trainer_summary, "pallas_adam": pallas_summary,
-        "dummy_gate": gate, "sparse_state": sparse_summary, "sparse_training": sparse_train}
+        "dummy_gate": gate, "sparse_state": sparse_summary, "sparse_training": sparse_train,
+        "framework_shell": shell}
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -70,15 +70,25 @@ def _sample_false_edges(
     """Rejection-sample ``count`` (row, col) pairs avoiding ``pos_keys``.
 
     ``pos_keys``: SORTED int64 linearized positives (``r * n_cols + c``).
-    Vectorized numpy (searchsorted membership tests — no Python-level
-    per-edge loop).  The JAX package hands large draws (``count > 4096``)
-    to a native C++ sampler seeded from ``rng``; that seed is still drawn
-    here, so the stream equals the JAX package's numpy path (the one it
-    takes when its native library is missing).
+    Large draws (``count > 4096``) go to the native C++ sampler
+    (``decagon_tpu_torch.native``: hash-set rejection; the reference's
+    equivalent was an O(E) scan per draw, ``minibatch.py:95-99``), seeded
+    from ``rng`` exactly as the JAX package seeds its own, so the two
+    packages draw the same negatives.  Without the library (it failed to
+    build, or is switched off) the draw falls back to vectorized numpy
+    (searchsorted membership tests — no Python-level per-edge loop), which
+    equals the JAX package's fallback.
     """
+    from decagon_tpu_torch import native
+
     n_cols = shape[1]
     if count > 4096 and pos_keys.size:
-        rng.integers(0, 2**62)
+        sampled = native.sample_false_edges(
+            pos_keys // n_cols, pos_keys % n_cols, shape, count,
+            seed=int(rng.integers(0, 2**62)),
+        )
+        if sampled is not None:
+            return sampled
     total_cells = shape[0] * shape[1]
     if total_cells - pos_keys.size < count:
         raise ValueError(

@@ -287,6 +287,24 @@ class AccuracyEvaluator:
             at += n
         return out
 
+    def _probs(
+        self,
+        params,
+        device_graph: DeviceGraph,
+        key: RelationKey,
+        edges: np.ndarray,
+        embeddings=None,
+    ) -> np.ndarray:
+        """Probabilities of one relation's ``edges[N, 2]`` (one forward
+        unless ``embeddings`` are given): the CLI's per-relation greedy
+        scorer."""
+        if edges.size == 0:
+            return np.empty((0,), dtype=np.float32)
+        if embeddings is None:
+            embeddings = self._embed(params, device_graph)
+        (probs,) = self._probs_flat(params, embeddings, key[:2], [(key[2], edges)])
+        return probs
+
     def evaluate(
         self,
         params,

@@ -64,8 +64,13 @@ class MetricsLogger:
         ndarray_dir: Optional[str] = None,
         relation_names: Optional[List[str]] = None,
         quiet: bool = False,
+        node_perms=None,
     ):
+        """``node_perms``: the ``{type: old_of_new}`` permutations of a
+        renumbered graph (``graph.renumber.renumber_by_degree``), so that
+        the npy export writes embeddings in external row order."""
         self.evaluator = evaluator
+        self.node_perms = node_perms
         self.dataset_id = dataset_id
         self.every_n = max(1, every_n_iterations)
         self.eval_relation = eval_relation
@@ -120,6 +125,7 @@ class MetricsLogger:
                 trainer.device_graph,
                 self.ndarray_dir,
                 relation_names=self.relation_names,
+                node_perms=self.node_perms,
             )
 
     def _write(

@@ -84,6 +84,9 @@ class Trainer:
             schedule=config.schedule,
         )
         self.device_graph = device_graph
+        # The mesh path's sharded forward; None here, as in the JAX package
+        # without a mesh (the evaluator then runs the model's own).
+        self.embed_fn = None
         self.steps, self.optimizer = make_train_steps(model, device_graph, config)
         self.step_seed = fold_in(seed, 1)
         if init_state is not None:

@@ -786,3 +786,32 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
         probe_paired_idioms.paired(m8, aug, aug, h=65)
     with pytest.raises(ValueError):
         probe_paired_idioms.paired(m8, aug, aug.cpu())
+
+
+def test_cli_on_the_card_launches_the_paired_kernels(cuda_device, tmp_path):
+    """``decagon_tpu_torch.cli`` at the CPU shell tests' size runs on
+    ``cuda`` by default, with the paired stacks and kernels (the JAX CLI's
+    accelerator defaults) and K5 for its evaluations; the export restores
+    its checkpoint in that layout."""
+    import json
+
+    from decagon_tpu_torch import cli
+    from decagon_tpu_torch.predict import export
+
+    conf = {
+        "DataSetType": "DecagonDummyData", "NumProteins": 60, "NumDrugs": 30,
+        "NumDrugDrugRelationTypes": 1, "hidden1": 8, "hidden2": 4, "batch_size": 16,
+        "NumEpochs": 1, "NumIterationsPerLog": 50, "ValFraction": 0.1, "TestFraction": 0.05,
+        "TrainIterationResultDir": str(tmp_path / "results"), "ShouldCheckpoint": True,
+        "CheckpointDirectory": str(tmp_path / "ck"), "NpSaveDir": str(tmp_path / "nd"),
+    }
+    path = tmp_path / "conf.json"
+    path.write_text(json.dumps(conf))
+    cuda_build.reset_launches()
+    cli.main(["--config", str(path)])
+    torch.cuda.synchronize()
+    for name in ("paired_fwd", "paired_bwd", "sddmm"):
+        assert cuda_build.LAUNCHES[name] > 0, name
+    export.main(["--config", str(path)])
+    emb = np.load(tmp_path / "nd" / "embeddings.npy")
+    assert emb.shape == (30, 4) and np.isfinite(emb).all()

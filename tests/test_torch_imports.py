@@ -16,7 +16,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "decagon_tpu_torch"
-FORBIDDEN = ("jax", "decagon_tpu", "networkx", "sklearn", "ml_dtypes", "optax", "orbax")
+FORBIDDEN = ("jax", "decagon_tpu", "networkx", "sklearn", "pandas", "ml_dtypes", "optax",
+             "orbax")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -45,7 +46,10 @@ def test_port_and_chip_smoke_import_no_jax():
                    "scripts.probe_int8_bw", "scripts.probe_paired_parts",
                    "scripts.probe_paired_orient", "scripts.probe_paired_bwd_idioms",
                    "scripts.probe_paired_idioms", "scripts.probe_paired_sweep",
-                   "scripts.probe_paired_cuts"):
+                   "scripts.probe_paired_cuts", "cli", "config", "registry", "native",
+                   "data.public", "data.record", "data.repair", "predict.predictor",
+                   "predict.export", "train.active", "train.layout", "graph.ids",
+                   "scripts.np_predictor_example"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]
@@ -79,7 +83,9 @@ def test_port_tree_holds_no_binaries_or_large_files():
         assert f.stat().st_size <= 1 << 20, f
 
 
-@pytest.mark.parametrize("name", ["optax", "networkx", "jax", "orbax", "decagon_tpu"])
+@pytest.mark.parametrize(
+    "name", ["optax", "networkx", "jax", "orbax", "decagon_tpu", "sklearn"]
+)
 def test_port_sources_name_no_forbidden_package(name):
     """No source line of the port or of ``chip_smoke.py`` imports the JAX
     package's dependencies, even behind a branch the probe above does not
