@@ -123,6 +123,28 @@ Phases, each announced with the seconds elapsed since start:
    selection round (``GreedyActiveLearner`` wired by ``cli.train_once``),
    which must score through K5.
 
+20. mesh (``decagon_tpu_torch/parallel``), in two parts.  (a), right
+   after phase 16 on phase 14's graph and split: a world of one rank over
+   NCCL, a (1, 1) mesh, the sharded graph with K6's layouts on every edge
+   type (seconds, GiB); launch counters set to 0, then the mesh
+   ``Trainer`` at batch 512 in chunks of 8 (one warm-up, 2 timed; ms a
+   step beside phase 16's "highest" ``Trainer``) and the evaluator through
+   its ``embed_fn`` on relation (1, 1, 0)'s validation edges, which must
+   launch K6 and K5, and whose K5 scores must match the plain scorer on
+   the same operands; one deterministic step (dropout 0, the same negative
+   uniforms) against phase 16's single-process sparse step and against
+   the mesh's own ``"pallas_ref"`` step (the loss to ``SPMM_REL_TOL``,
+   gradients to ``SPARSE_GRAD_TOL["highest"]``), and K6 against its plain
+   version on that step's recorded operands.  (b), at the end: 4
+   processes over gloo on this card (a (2, 2) mesh, the dummy config at
+   full width, batch 512), "auto" with ``shard_weights`` and "pallas" with
+   K6 in every rank: one deterministic step's loss and gradients and the
+   embeddings against the single process on the card, K6 launched in
+   every rank of the "pallas" run and held against its plain version on
+   each rank's own operands, the library of phase 2 loaded, not built
+   again.  The mesh launches of (a)
+   are added to the main path's.
+
 The paired kernels K1/K2 (forward) and K3/K4 (backward) share one sweep
 (``decagon_tpu_torch/csrc/paired_core.cuh``): a bf16 operand pass, then
 16-byte ``cp.async`` mask staging in a three-stage ring with one barrier a
@@ -1323,6 +1345,480 @@ def sparse_gradients(dg, params, splits, seed):
     return out
 
 
+# ---- phase 20: the mesh ---------------------------------------------------
+#
+# (a) runs after phase 16, on phase 14's sparse graph; (b) at the end.
+MESH_CHUNK, MESH_WINDOWS = 8, 2
+MESH_RANKS, MESH_SHAPE = 4, (2, 2)
+# (b): the mesh against the single process on the card, as
+# tests/test_parallel.py holds the JAX mesh against one device: the loss to
+# 1e-5 relative, gradients to 2e-4 relative plus 1e-5 absolute, embeddings
+# to 2e-5 relative plus 1e-6 absolute (f32 sums in other orders).
+MESH_LOSS_TOL = 1e-5
+MESH_GRAD_RTOL, MESH_GRAD_ATOL = 2e-4, 1e-5
+MESH_EMB_RTOL, MESH_EMB_ATOL = 2e-5, 1e-6
+MESH_TIMEOUT_S = 240
+# The dummy config of phase 13 at full width.
+MESH_DUMMY = dict(n_genes=500, n_drugs=400, n_drugdrug_types=3, seed=0)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class SpmmRecorder:
+    """Wraps K6's wrapper to keep the operand of every call while open:
+    one per (layout, width), i.e. per edge type, layer and direction."""
+
+    def __init__(self):
+        import decagon_tpu_torch.ops.spmm_pallas as spp
+
+        self.spp, self.orig, self.calls = spp, spp.spmm_tiled, {}
+
+        def record(p_flat, tiles, precision="highest"):
+            self.calls.setdefault((id(tiles), p_flat.shape[1]),
+                                  (p_flat.detach().clone(), tiles, precision))
+            return self.orig(p_flat, tiles, precision)
+
+        spp.spmm_tiled = record
+
+    def close(self):
+        self.spp.spmm_tiled = self.orig
+
+
+class SddmmRecorder:
+    """Wraps the scorer's K5 entry (``train.step.sddmm_edges``) to keep the
+    operands and the result of every call while open."""
+
+    def __init__(self):
+        import decagon_tpu_torch.train.step as step
+
+        self.step, self.orig, self.calls = step, step.sddmm_edges, []
+
+        def record(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.calls.append((args, kw, out))
+            return out
+
+        step.sddmm_edges = record
+
+    def close(self):
+        self.step.sddmm_edges = self.orig
+
+
+def recorded_spmm_rows(rec, sg, label):
+    """K6 against ``spmm_tiled_ref`` on every operand ``rec`` kept, each
+    case named by its edge type in ``sg``, its layer and its direction;
+    raises unless both directions were recorded.  The relative error is
+    of the largest output."""
+    import torch
+
+    from decagon_tpu_torch.ops.spmm_pallas import spmm_tiled, spmm_tiled_ref
+
+    names = {}
+    for key, adj in sg.adj.items():
+        names[id(adj.tiles_fwd)], names[id(adj.tiles_bwd)] = f"({key}) {{}} forward", \
+            f"({key}) {{}} backward"
+    rows_out = []
+    for (_, h), (p, tiles, precision) in sorted(rec.calls.items(), key=lambda kv: -kv[0][1]):
+        got, want = spmm_tiled(p, tiles, precision), spmm_tiled_ref(p, tiles, precision)
+        if got.is_cuda:
+            torch.cuda.synchronize(got.device)
+        err = (got - want).abs().max().item()
+        top = max(want.abs().max().item(), 1e-30)
+        rows_out.append(dict(
+            case=label + names[id(tiles)].format("layer 1" if h == 64 else "layer 2"),
+            precision=precision, rows=tiles.n_dst, nnz=tiles.nnz, H=h, max_abs_err=err,
+            rel_err=err / top))
+    if not any("forward" in r["case"] for r in rows_out) or \
+            not any("backward" in r["case"] for r in rows_out):
+        raise AssertionError(f"{label}: K6's calls were not recorded in both directions: "
+                             f"{[r['case'] for r in rows_out]}")
+    return rows_out
+
+
+def recorded_sddmm_rows(rec, label):
+    """The scores K5 gave on every call ``rec`` kept against the plain
+    scorer on the same operands, held as phase 4 holds them: within
+    ``SDDMM_REL_TOL`` of max(1, largest score).  Raises unless a call was
+    recorded."""
+    import torch
+
+    from decagon_tpu_torch.ops.sddmm_pallas import sddmm_plain
+
+    if not rec.calls:
+        raise AssertionError(f"{label}: the scorer never reached K5")
+    rows_out = []
+    for i, (args, kw, got) in enumerate(rec.calls):
+        want = sddmm_plain(*args, **kw)
+        if want.is_cuda:
+            torch.cuda.synchronize(want.device)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        row = dict(case=f"{label}, call {i}", edges=args[2].numel(), d=args[0].shape[1],
+                   precision=kw.get("precision", "highest"), max_abs_err=err,
+                   rel_err=err / scale)
+        log(json.dumps(row))
+        if not row["rel_err"] <= SDDMM_REL_TOL:
+            raise AssertionError(f"sddmm {row['case']}: error {err:.3g} > {SDDMM_REL_TOL} x "
+                                 f"{scale:.3g}")
+        rows_out.append(row)
+    return rows_out
+
+
+def mesh_step(graph, splits, sg, dg_sparse, mesh, seed):
+    """One deterministic drug-drug step (dropout 0, the same negative
+    uniforms) through the (1, 1) mesh against the single-process sparse
+    step on phase 14's graph (``spmm_impl="pallas"``) and against the same
+    mesh step through K6's plain version (``"pallas_ref"``), at "highest":
+    the loss to ``SPMM_REL_TOL`` of its size, each gradient leaf to
+    ``SPARSE_GRAD_TOL["highest"]`` of its largest.  K6's operands of the
+    mesh step are recorded, and K6 is held against its plain version on
+    each.  Returns (summary, K6 rows)."""
+    import dataclasses
+
+    import torch
+
+    from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
+    from decagon_tpu_torch.parallel.sharded import make_sharded_grads_fn
+    from decagon_tpu_torch.train.step import (
+        TrainConfig, make_loss_fn, step_generator, value_and_grad,
+    )
+
+    cfg = TrainConfig(batch_size=512)
+    det = ModelConfig(hidden1=64, hidden2=32, dropout=0.0, spmm_impl="auto")
+    mesh_model = DecagonModel(det, sg)
+    single_model = DecagonModel(dataclasses.replace(det, spmm_impl="pallas"), dg_sparse)
+    params = mesh_model.init_params(torch.Generator().manual_seed(seed), sg)
+    rows, cols = _batch(splits, (1, 1), 7, cfg.batch_size, seed + 200)
+    u = torch.rand(cfg.batch_size, generator=torch.Generator(device=sg.device).manual_seed(seed + 200),
+                   device=sg.device)
+    rec = SpmmRecorder()
+    try:
+        loss_m, grads_m = make_sharded_grads_fn(mesh_model, (1, 1), cfg, mesh, sg)(
+            params, sg, 7, rows, cols, step_generator(seed, 0, sg.device), neg_u=u)
+        torch.cuda.synchronize()
+    finally:
+        rec.close()
+    loss_s, grads_s = value_and_grad(make_loss_fn(single_model, (1, 1), cfg), params, dg_sparse,
+                                     7, rows, cols, None, None, neg_u=u)
+    ref_model = DecagonModel(dataclasses.replace(det, spmm_impl="pallas_ref"), sg)
+    loss_r, grads_r = make_sharded_grads_fn(ref_model, (1, 1), cfg, mesh, sg)(
+        params, sg, 7, rows, cols, step_generator(seed, 0, sg.device), neg_u=u)
+    lm, ls, lr = float(loss_m), float(loss_s), float(loss_r)
+    log(f"mesh step: loss {lm:.6f} (mesh, K6) {lr:.6f} (mesh, \"pallas_ref\") {ls:.6f} "
+        f"(single process)")
+    if not (abs(lm - ls) <= SPMM_REL_TOL * abs(ls) and abs(lm - lr) <= SPMM_REL_TOL * abs(lr)):
+        raise AssertionError(f"mesh step loss {lm} against {ls} (single) and {lr} (pallas_ref)")
+    worst = hold_gradients("mesh step gradient", _leaves(grads_m), _leaves(grads_s),
+                           SPARSE_GRAD_TOL["highest"])
+    worst_ref = hold_gradients("mesh step gradient against \"pallas_ref\"", _leaves(grads_m),
+                               _leaves(grads_r), SPARSE_GRAD_TOL["highest"])
+    rows_out = recorded_spmm_rows(rec, sg, "mesh ")
+    for row in rows_out:
+        log(json.dumps(row))
+        if not row["rel_err"] <= SPMM_REL_TOL:
+            raise AssertionError(f"K6 on the mesh operands {row['case']}: {row['rel_err']:.3g}")
+    return dict(loss={"mesh": lm, "single": ls, "pallas_ref": lr}, worst_grad_rel_err=worst,
+                worst_grad_rel_err_pallas_ref=worst_ref), rows_out
+
+
+def mesh_paper(graph, splits, dg_sparse, seed, phase16_ms):
+    """Phase 20 (a): the (1, 1) NCCL mesh in this process at paper scale,
+    full width.  The sharded graph with K6's layouts on every edge type
+    (seconds and GiB); launch counters set to 0, then the mesh ``Trainer``
+    (batch 512, chunks of ``MESH_CHUNK``: one warm-up, ``MESH_WINDOWS``
+    timed) and the evaluator through its ``embed_fn`` on relation (1, 1,
+    0)'s validation edges; K6 and K5 must launch, and K5's scores of that
+    sweep (the evaluator's, on the ``embed_fn`` tables) are held against
+    the plain scorer on the same operands to ``SDDMM_REL_TOL``.  Then
+    ``mesh_step``.  Returns (launches, summary, K6 rows, K5 rows)."""
+    import torch
+    import torch.distributed as dist
+
+    from decagon_tpu_torch.bench import config_metrics, graph_nnz, steady_state_ms
+    from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
+    from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from decagon_tpu_torch.parallel.rowshard import build_sharded_device_graph
+    from decagon_tpu_torch.train.evaluate import AccuracyEvaluator
+    from decagon_tpu_torch.train.step import TrainConfig
+    from decagon_tpu_torch.train.trainer import Trainer
+
+    device = dg_sparse.device
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(shape=(1, 1), backend="nccl")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        sg = build_sharded_device_graph(graph, splits, (1, 1), 0, device, tile_for_pallas=True)
+        torch.cuda.synchronize()
+        summary = dict(build_s=time.perf_counter() - t,
+                       device_gib=(torch.cuda.memory_allocated() - before) / 2**30)
+        log(f"sharded graph (1, 1): {summary['build_s']:.1f}s, {summary['device_gib']:.2f} GiB")
+        if any(a.dense is not None or a.tiles_fwd is None for a in sg.adj.values()):
+            raise AssertionError("the paper-scale sharded graph must be K6's on every edge type")
+        model = DecagonModel(ModelConfig(hidden1=64, hidden2=32, dropout=0.1, spmm_impl="auto"),
+                             sg)
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        trainer = Trainer(model, graph, splits, sg,
+                          TrainConfig(batch_size=512, scan_chunk=MESH_CHUNK), seed=seed, mesh=mesh)
+        timing = steady_state_ms(trainer, MESH_CHUNK, MESH_WINDOWS)
+        losses = timing.pop("losses")
+        t = time.perf_counter()
+        rec = SddmmRecorder()
+        try:
+            scores = AccuracyEvaluator(model, graph, splits, embed_fn=trainer.embed_fn,
+                                       device=device).evaluate(trainer.params, sg, (1, 1, 0))
+            torch.cuda.synchronize()
+        finally:
+            rec.close()
+        counts = dict(cuda_build.LAUNCHES)
+        summary["trainer"] = dict(
+            steps=len(losses), chunk=MESH_CHUNK, last_losses=losses[-4:].tolist(),
+            shard_weights=trainer.shard_weights, **config_metrics(graph_nnz(sg), timing),
+            phase16_highest_ms_per_step_median=phase16_ms,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        summary["eval"] = dict(auroc=scores.auroc, auprc=scores.auprc, apk=scores.apk,
+                               seconds=time.perf_counter() - t)
+        summary["launches"] = counts
+        log(f"mesh trainer {json.dumps(summary['trainer'])}; evaluation "
+            f"{json.dumps(summary['eval'])}; launches {counts}")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError("mesh trainer losses not finite")
+        if counts["spmm_tiled"] <= 0 or counts["sddmm"] <= 0:
+            raise AssertionError(f"K6 or K5 never launched on the mesh path: {counts}")
+        if not all(0.0 <= v <= 1.0 for v in (scores.auroc, scores.auprc, scores.apk)):
+            raise AssertionError(f"mesh evaluation metrics outside [0, 1]: {scores}")
+        k5_rows = recorded_sddmm_rows(rec, "mesh (1, 1) evaluator, relation (1, 1, 0)")
+        del trainer, rec
+        summary["step"], k6_rows = mesh_step(graph, splits, sg, dg_sparse, mesh, seed)
+    finally:
+        dist.destroy_process_group()
+    return counts, summary, k6_rows, k5_rows
+
+
+def _dummy_world(device, seed):
+    """Phase 13's graph and split, a drug-drug batch and its negative
+    uniforms, the same in every process."""
+    import numpy as np
+    import torch
+
+    from decagon_tpu_torch.graph.split import split_graph
+    from decagon_tpu_torch.graph.synthetic import make_synthetic_graph
+
+    graph = make_synthetic_graph(**MESH_DUMMY)
+    splits = split_graph(graph, val_frac=0.05, test_frac=0.0, seed=1)
+    edges = splits[(1, 1, 1)].train
+    idx = np.random.default_rng(seed + 300).integers(0, edges.shape[0], 512)
+    rows, cols = (torch.from_numpy(edges[idx, c].astype(np.int32)).to(device) for c in (0, 1))
+    u = torch.rand(512, generator=torch.Generator(device=device).manual_seed(seed + 300),
+                   device=device)
+    return graph, splits, rows, cols, u
+
+
+def _mesh_rank(rank, n_ranks, port, seed, device, results):
+    """One rank of phase 20 (b) on ``device`` (the card) over gloo: for "auto" (dense
+    blocks, ``shard_weights``) and "pallas" (K6 on every edge type), one
+    deterministic step's loss and gradients and the embeddings on the
+    (2, 2) mesh; rank 0 sends them, every rank its launches and, for
+    "pallas", K6 against its plain version on the step's operands of this
+    rank (its round-robin slice's CSR, the backward into all of
+    ``[K * n_j]``)."""
+    import traceback
+
+    t0 = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
+        from decagon_tpu_torch.ops import cuda_build
+        from decagon_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, mesh_slot
+        from decagon_tpu_torch.parallel.rowshard import build_sharded_device_graph
+        from decagon_tpu_torch.parallel.sharded import (
+            gather_relation_blocks, local_relation_block, make_sharded_embed_fn,
+            make_sharded_grads_fn, shardable_weight_keys,
+        )
+        from decagon_tpu_torch.train.step import TrainConfig, step_generator
+
+        device = torch.device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+            cuda_build.library()
+        initialize_distributed(f"127.0.0.1:{port}", n_ranks, rank, backend="gloo")
+        mesh = make_mesh(shape=MESH_SHAPE, backend="gloo")
+        out = {"rank": rank, "library_cached": cuda_build.BUILD_INFO.get("cached")}
+        graph, splits, rows, cols, u = _dummy_world(device, seed)
+        cfg = TrainConfig(batch_size=512)
+        for impl in ("auto", "pallas"):
+            cuda_build.reset_launches()
+            k6 = impl == "pallas"
+            sg = build_sharded_device_graph(graph, splits, MESH_SHAPE, mesh_slot(mesh), device,
+                                            tile_for_pallas=k6, tile_even_if_dense=k6)
+            model = DecagonModel(ModelConfig(hidden1=64, hidden2=32, dropout=0.0,
+                                             spmm_impl=impl), sg)
+            sw = impl == "auto" and bool(shardable_weight_keys(sg))
+            params = model.init_params(torch.Generator().manual_seed(seed), sg)
+            local = local_relation_block(params, sg) if sw else params
+            rec = SpmmRecorder() if k6 else None
+            try:
+                loss, grads = make_sharded_grads_fn(model, (1, 1), cfg, mesh, sg,
+                                                    shard_weights=sw)(
+                    local, sg, 1, rows, cols, step_generator(seed, 0, device), neg_u=u)
+            finally:
+                if rec is not None:
+                    rec.close()
+            if sw:
+                grads = gather_relation_blocks(grads, sg, mesh)
+            emb = make_sharded_embed_fn(model, mesh, sg, shard_weights=sw)(local, sg)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            res = {"loss": float(loss), "shard_weights": sw,
+                   "launches": dict(cuda_build.LAUNCHES)}
+            if rec is not None:
+                # K6 against its plain version on this rank's own operands
+                # (after the launches are read: these do not count).
+                res["k6_checks"] = recorded_spmm_rows(rec, sg, f"mesh rank {rank} ")
+            if rank == 0:
+                res["grads"] = {k: v.cpu().numpy() for k, v in _leaves(grads).items()}
+                res["emb"] = {k: v.cpu().numpy() for k, v in emb.items()}
+            out[impl] = res
+        out["seconds"] = time.perf_counter() - t0
+        results.put((rank, True, out))
+    except BaseException:  # reported to the parent, which fails the phase
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_ranks(device, seed):
+    """Phase 20 (b): ``MESH_RANKS`` processes (``_mesh_rank``) spawned over
+    gloo on ``device``'s card, a ``MESH_SHAPE`` mesh, the dummy config at
+    full width (hidden 64 -> 32, batch 512), "auto" with ``shard_weights``
+    and "pallas" with K6 in every rank (``tile_even_if_dense``).  Each
+    holds one deterministic step's loss and gradients and the embeddings
+    against the single process on the card (same graph built with the
+    same impl, no paired or factored stacks; same negatives); K6 must
+    launch in every rank of the "pallas" run and match its plain version
+    there on that rank's operands to ``SPMM_REL_TOL``; the ranks load the
+    library this process built.  A failed rank fails the phase; every rank
+    is joined or killed.  Returns a summary."""
+    import queue as queue_mod
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from decagon_tpu_torch.graph.device import build_device_graph
+    from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
+    from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.train.step import TrainConfig, make_loss_fn, value_and_grad
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        cuda_build.library()
+        device = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_mesh_rank, args=(rank, MESH_RANKS, port, seed, str(device),
+                                                  results), daemon=True)
+             for rank in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        graph, splits, rows, cols, u = _dummy_world(device, seed)
+        cfg = TrainConfig(batch_size=512)
+        want = {}
+        for impl in ("auto", "pallas"):
+            k6 = impl == "pallas"
+            dg = build_device_graph(graph, splits, device=device, tile_for_pallas=k6,
+                                    tile_even_if_dense=k6, build_fused=False)
+            model = DecagonModel(ModelConfig(hidden1=64, hidden2=32, dropout=0.0,
+                                             spmm_impl=impl), dg)
+            params = model.init_params(torch.Generator().manual_seed(seed), dg)
+            loss, grads = value_and_grad(make_loss_fn(model, (1, 1), cfg), params, dg, 1, rows,
+                                         cols, None, None, neg_u=u)
+            with torch.no_grad():
+                emb = model.embeddings(params, dg)
+            want[impl] = (float(loss), {k: v.cpu().numpy() for k, v in _leaves(grads).items()},
+                          {k: v.cpu().numpy() for k, v in emb.items()})
+        got, deadline = {}, time.monotonic() + MESH_TIMEOUT_S
+        while len(got) < MESH_RANKS:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise AssertionError(f"mesh ranks: no answer within {MESH_TIMEOUT_S} s "
+                                     f"(answered: {sorted(got)})")
+            try:
+                rank, ok, payload = results.get(timeout=min(left, 5.0))
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead:
+                    raise AssertionError(f"a mesh rank died with exit code {dead[0]}")
+                continue
+            if not ok:
+                raise AssertionError(f"mesh rank {rank} failed:\n{payload}")
+            got[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    summary = {"seconds": time.perf_counter() - t0,
+               "rank_seconds": [got[r]["seconds"] for r in range(MESH_RANKS)],
+               "shape": list(MESH_SHAPE),
+               "library_cached": [got[r]["library_cached"] for r in range(MESH_RANKS)]}
+    for impl in ("auto", "pallas"):
+        w_loss, w_grads, w_emb = want[impl]
+        r0 = got[0][impl]
+        losses = [got[r][impl]["loss"] for r in range(MESH_RANKS)]
+        grad_err = max(
+            float((np.abs(r0["grads"][n] - w) / (MESH_GRAD_RTOL * np.abs(w) + MESH_GRAD_ATOL)).max())
+            for n, w in w_grads.items())
+        emb_err = max(
+            float((np.abs(r0["emb"][k] - w) / (MESH_EMB_RTOL * np.abs(w) + MESH_EMB_ATOL)).max())
+            for k, w in w_emb.items())
+        launches = [got[r][impl]["launches"]["spmm_tiled"] for r in range(MESH_RANKS)]
+        summary[impl] = dict(loss_mesh=losses, loss_single=w_loss,
+                             shard_weights=r0["shard_weights"],
+                             grad_err_over_bound=grad_err, emb_err_over_bound=emb_err,
+                             spmm_tiled_launches_per_rank=launches)
+        if impl == "pallas":
+            checks = [got[r][impl]["k6_checks"] for r in range(MESH_RANKS)]
+            summary[impl]["k6_cases_per_rank"] = [len(c) for c in checks]
+            summary[impl]["k6_rel_err_per_rank"] = [max(row["rel_err"] for row in c)
+                                                    for c in checks]
+        log(f"mesh ranks ({impl}): {json.dumps(summary[impl])}")
+        if not all(abs(lm - w_loss) <= MESH_LOSS_TOL * abs(w_loss) for lm in losses):
+            raise AssertionError(f"mesh ranks ({impl}): losses {losses} against {w_loss}")
+        if not (grad_err <= 1.0 and emb_err <= 1.0):
+            raise AssertionError(f"mesh ranks ({impl}): gradients {grad_err:.3g}, embeddings "
+                                 f"{emb_err:.3g} of their bounds")
+    if summary["auto"]["shard_weights"] is not True:
+        raise AssertionError("mesh ranks (auto): shard_weights did not engage")
+    if not all(n > 0 for n in summary["pallas"]["spmm_tiled_launches_per_rank"]):
+        raise AssertionError(f"K6 did not launch in every rank: {summary['pallas']}")
+    if not all(e <= SPMM_REL_TOL for e in summary["pallas"]["k6_rel_err_per_rank"]):
+        raise AssertionError(f"K6 against its plain version on a rank's operands: "
+                             f"{summary['pallas']['k6_rel_err_per_rank']} past {SPMM_REL_TOL}")
+    if not all(summary["library_cached"]):
+        raise AssertionError("a mesh rank built the kernels again")
+    log(f"mesh ranks: {summary['seconds']:.1f}s from the spawn, each rank "
+        f"{[round(t, 1) for t in summary['rank_seconds']]}s from its start")
+    return summary
+
+
 def small_sparse(device):
     """On the small graph with every layout (tilings on every edge type and
     the fused stream): "pallas" and "fused_pallas" through K6 against
@@ -1748,7 +2244,14 @@ def main(argv=None) -> int:
     sparse_counts, sparse_train, params_sparse = sparse_training(graph, splits, dg_sparse,
                                                                  args.seed)
     sparse_train["gradients"] = sparse_gradients(dg_sparse, params_sparse, splits, args.seed)
-    del dg_sparse, params_sparse
+    del params_sparse
+
+    phase("mesh (a): paper scale, a (1, 1) NCCL mesh")
+    mesh_counts, mesh_paper_summary, mesh_k6_rows, mesh_k5_rows = mesh_paper(
+        graph, splits, dg_sparse, args.seed,
+        sparse_train["trainer"]["highest"]["ms_per_step_median"])
+    del dg_sparse
+    torch.cuda.empty_cache()
 
     phase("small-input sparse checks")
     small_sparse(device)
@@ -1759,11 +2262,16 @@ def main(argv=None) -> int:
     phase("framework shell")
     shell = framework_shell(device, args.seed)
 
+    phase(f"mesh (b): {MESH_RANKS} ranks over gloo on one card")
+    mesh_ranks_summary = mesh_ranks(device, args.seed)
+
     phase("done")
     launches = {name: counts[name] + train_counts[name] + trainer_counts[name]
-                + pallas_counts[name] + sparse_counts[name] for name in train_counts}
+                + pallas_counts[name] + sparse_counts[name] + mesh_counts[name]
+                for name in train_counts}
     log(f"launches on the main path: serve {counts}, train {train_counts}, trainer "
-        f"{trainer_counts}, trainer with pallas_adam {pallas_counts}, sparse {sparse_counts}")
+        f"{trainer_counts}, trainer with pallas_adam {pallas_counts}, sparse {sparse_counts}, "
+        f"mesh {mesh_counts}")
     # The one-pass Adam's line: the leaf the main path gives it, then the
     # other f32 cases (K7's contract); P6's bf16 case is listed beside them
     # (no library call takes bf16 moments with f32 parameters).
@@ -1777,7 +2285,7 @@ def main(argv=None) -> int:
                      bwd_rows, library_rows=bwd_rows),
         kernel_entry("sddmm", "decagon_tpu_torch/csrc/sddmm.cu",
                      "decagon_tpu/ops/sddmm_pallas.py:93", launches["sddmm"],
-                     sddmm_rows),
+                     sddmm_rows, cases=sddmm_rows + mesh_k5_rows),
         kernel_entry("sddmm_bf16", "decagon_tpu_torch/csrc/sddmm.cu",
                      "decagon_tpu/ops/sddmm_pallas.py:93", launches["sddmm_bf16"],
                      sddmm_bf16_rows),
@@ -1786,7 +2294,8 @@ def main(argv=None) -> int:
         # is listed.
         kernel_entry("spmm_tiled", "decagon_tpu_torch/csrc/spmm_tiled.cu",
                      "decagon_tpu/ops/spmm_pallas.py:42", launches["spmm_tiled"],
-                     spmm_rows, library_rows=spmm_rows, cases=spmm_rows + spmm_bf16_rows),
+                     spmm_rows, library_rows=spmm_rows,
+                     cases=spmm_rows + spmm_bf16_rows + mesh_k6_rows),
         kernel_entry("adam", "decagon_tpu_torch/csrc/adam.cu",
                      "decagon_tpu/ops/optim.py:133", launches["adam"], k7_rows,
                      library_rows=k7_rows, cases=adam_rows),
@@ -1803,7 +2312,8 @@ def main(argv=None) -> int:
         for head in [[r for r in probe_rows[name] if r["case"] == probe_heads[name]]]
     ], "train": train_summary, "trainer": trainer_summary, "pallas_adam": pallas_summary,
         "dummy_gate": gate, "sparse_state": sparse_summary, "sparse_training": sparse_train,
-        "framework_shell": shell}
+        "framework_shell": shell,
+        "mesh": {"paper": mesh_paper_summary, "ranks": mesh_ranks_summary}}
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

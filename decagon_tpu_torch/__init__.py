@@ -11,6 +11,7 @@ run only there, and their plain PyTorch versions run for CPU tensors.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -21,7 +22,9 @@ DeviceLike = Union[str, torch.device, None]
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless ``device`` names
     another one.  Raises when CUDA is asked for (or defaulted to) and no
-    card is present, so nothing falls back to the CPU silently.
+    card is present, so nothing falls back to the CPU silently.  A bare
+    ``cuda`` in a rank of a multi-process run (``LOCAL_RANK`` set, as
+    ``torchrun`` sets it) is that rank's card, ``cuda:{LOCAL_RANK}``.
 
     Also turns TF32 off for float32 products and convolutions: the port's
     plain versions are references, and TF32 keeps only ~3 decimal digits.
@@ -29,6 +32,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "decagon_tpu_torch runs on a CUDA device by default and none is "

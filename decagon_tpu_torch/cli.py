@@ -20,8 +20,19 @@ in the JAX package.  The port adds ``Device`` (unset: ``cuda``): where
 the JAX CLI asks its backend whether it runs on an accelerator (the CSR
 layouts of ``SpmmImpl: "auto"``, the ``DenseFactored`` / ``DensePaired``
 defaults), the port asks whether that device is not the CPU.
-``ProfileDir`` records a ``torch.profiler`` trace; ``MeshShape`` and
-``DistributedInit`` raise (mesh parallelism is not ported).
+``ProfileDir`` records a ``torch.profiler`` trace.
+
+Mesh: ``"MeshShape": [rows, edge_shards]`` trains over a (row, edge) mesh
+(``decagon_tpu_torch.parallel``) of that many ranks, one process each;
+``"DistributedInit": true`` first creates the process group from the
+``torchrun`` environment (NCCL on cards, gloo on the CPU), and
+``"MultiHostMesh": true`` keeps the ``edge`` axis within a host::
+
+    python -m torch.distributed.run --nproc_per_node 4 -m decagon_tpu_torch.cli \
+        --config conf.json --set 'MeshShape=[2,2]' --set DistributedInit=true
+
+Every rank runs the same program; the iteration CSV, the held-out-edge
+CSV, checkpoints and exports come from rank 0 only.
 
 The dataset, the graph the model trains on (transposes,
 ``RenumberNodes``, the split) and its device graph are built by
@@ -38,6 +49,7 @@ from decagon_tpu_torch.config import Config
 from decagon_tpu_torch.data.record import timestamped_path, write_heldout_edges_csv
 from decagon_tpu_torch.graph.container import RelationGraph
 from decagon_tpu_torch.models.model import DecagonModel
+from decagon_tpu_torch.parallel.mesh import process_rank
 from decagon_tpu_torch.train.checkpoint import Checkpointer
 from decagon_tpu_torch.train.evaluate import AccuracyEvaluator
 from decagon_tpu_torch.train.layout import (
@@ -70,13 +82,26 @@ def build_active_learner(config: Config, graph: RelationGraph):
     return registry.build(BaseActiveLearner, kind, **kwargs)
 
 
-def _check_no_mesh(config: Config) -> None:
-    if config.has("MeshShape") or bool(config.get("DistributedInit", False)):
-        raise NotImplementedError(
-            "MeshShape / DistributedInit are not ported yet: mesh parallelism on "
-            "torch.distributed belongs to the port's parallel/ module, which does not "
-            "exist yet"
-        )
+def build_mesh(config: Config, device: torch.device):
+    """The (row, edge) mesh of ``MeshShape`` (None without it), after
+    ``initialize_distributed`` when ``DistributedInit`` is set; the backend
+    is NCCL on a card and gloo on the CPU."""
+    if not config.has("MeshShape"):
+        return None
+    from decagon_tpu_torch.parallel.mesh import (
+        default_backend,
+        initialize_distributed,
+        make_mesh,
+    )
+
+    backend = default_backend(device)
+    if bool(config.get("DistributedInit", False)):
+        initialize_distributed(backend=backend)
+    return make_mesh(
+        shape=tuple(int(x) for x in config.get("MeshShape")),
+        multihost=bool(config.get("MultiHostMesh", False)),
+        backend=backend,
+    )
 
 
 def train_once(
@@ -89,15 +114,15 @@ def train_once(
     relation_names,
     learner=None,
 ) -> Trainer:
-    _check_no_mesh(config)
     device = config.device()
+    mesh = build_mesh(config, device)
     model_cfg = config.model_config()
     train_cfg = config.train_config()
     seed = int(config.get("Seed", 0))
 
     tg = training_graph(config, graph, protein_ids, drug_ids, holdout)
     full, splits = tg.full, tg.splits
-    if config.has("TestEdgeFilename"):
+    if config.has("TestEdgeFilename") and process_rank() == 0:
         path = write_heldout_edges_csv(
             full, splits, timestamped_path(config.get("TestEdgeFilename")),
             protein_ids=tg.protein_ids, drug_ids=tg.drug_ids,
@@ -116,7 +141,7 @@ def train_once(
             every_n_iterations=int(config.get("NumIterationsPerCheckpoint", 1)),
         )
 
-    trainer = Trainer(model, full, splits, device_graph, train_cfg, seed=seed)
+    trainer = Trainer(model, full, splits, device_graph, train_cfg, seed=seed, mesh=mesh)
     evaluator = AccuracyEvaluator(
         model, full, splits, apk_k=int(config.get("ApkRank", 50)),
         embed_fn=trainer.embed_fn, device=device,

@@ -235,15 +235,18 @@ def encode_layer(
     bits: Optional[torch.Tensor] = None,
     per_relation_dropout_max: int = 64,
     spmm_precision: str = "highest",
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """One encoder layer: per node type, the sum over incoming edge types
     of the row-normalized aggregation (``relu`` applied to the sum).
     ``bits``: the layer's flat bool keep-draw (``layer_mask_spans``), or
-    None for no dropout."""
+    None for no dropout.  ``group``: a process group over which each
+    aggregation is summed (``parallel.collectives.all_reduce_sum``) before
+    it is normalized, for a graph whose edges are split over its ranks."""
     if spmm_impl in FUSED_IMPLS:
         return fused_layer(
             params, graph, level, inputs, relu, spmm_impl, dropout_rate, bits,
-            per_relation_dropout_max, spmm_precision,
+            per_relation_dropout_max, spmm_precision, group,
         )
     paired = paired_edge_types(graph, spmm_impl)
     pimpl = "paired_ref" if spmm_impl == "paired_ref" else "auto"
@@ -274,6 +277,10 @@ def encode_layer(
                     _project(feat, w, m, keep), adj, impl=resolve_impl(adj, base_impl),
                     precision=spmm_precision,
                 )
+            if group is not None:
+                from decagon_tpu_torch.parallel.collectives import all_reduce_sum
+
+                agg = all_reduce_sum(group)(agg)
             term = l2_normalize_rows(agg)
             acc = term if acc is None else acc + term
         if acc is None:
@@ -293,12 +300,14 @@ def fused_layer(
     bits: Optional[torch.Tensor] = None,
     per_relation_dropout_max: int = 64,
     spmm_precision: str = "highest",
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """``encode_layer``'s math with every edge type aggregated at once over
     ``graph.fused``: the projected stacks concatenated in layout order,
     then one gather and one ``index_add_`` ("fused") or one K6 launch
     ("fused_pallas"; "fused_pallas_ref" its plain version); each term is
-    row-normalized on its own, as in ``encode_layer``."""
+    row-normalized on its own, as in ``encode_layer``.  ``group``: as
+    there, the whole term space summed over it."""
     fa = graph.fused
     if fa is None:
         raise ValueError(
@@ -322,6 +331,10 @@ def fused_layer(
         t_global = spmm_pallas_flat(
             p_global, fa, spmm_precision, ref=spmm_impl == "fused_pallas_ref"
         )
+    if group is not None:
+        from decagon_tpu_torch.parallel.collectives import all_reduce_sum
+
+        t_global = all_reduce_sum(group)(t_global)
     out: Dict[str, torch.Tensor] = {}
     for i in range(len(graph.num_nodes)):
         acc = None
@@ -375,6 +388,7 @@ def encode(
     per_relation_dropout_max: int = 64,
     layer_bits: Optional[LayerBits] = None,
     spmm_precision: str = "highest",
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """Node embeddings per type: {"0": [N_0, H2], ...}.
 
@@ -382,7 +396,11 @@ def encode(
     either ``generator`` (one Bernoulli draw per layer, on the generator's
     device, ``draw_layer_bits``) or ``layer_bits`` ({"enc1": bool [total1],
     "enc2": bool [total2]}, replacing the draws) is given.
-    ``spmm_precision`` steers the K6 paths ("pallas", "fused_pallas")."""
+    ``spmm_precision`` steers the K6 paths ("pallas", "fused_pallas").
+    ``group`` (the JAX package's ``axis_name``): a process group over which
+    every aggregation is summed before normalization, so that ranks holding
+    disjoint parts of the edges and the same parameters compute the whole
+    graph's embeddings."""
     check_spmm_impl(spmm_impl)
     paired = paired_edge_types(graph, spmm_impl)
     if paired and spmm_impl in FUSED_IMPLS:
@@ -401,6 +419,7 @@ def encode(
     kw = dict(
         spmm_impl=spmm_impl, dropout_rate=dropout_rate,
         per_relation_dropout_max=per_relation_dropout_max, spmm_precision=spmm_precision,
+        group=group,
     )
     h1 = encode_layer(
         params, graph, "enc1", graph.features, True,

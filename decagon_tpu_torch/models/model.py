@@ -115,10 +115,12 @@ class DecagonModel(nn.Module):
         generator: Optional[torch.Generator] = None,
         deterministic: bool = True,
         layer_bits: Optional[LayerBits] = None,
+        group=None,
     ) -> Dict[str, torch.Tensor]:
         """Node embeddings per type; with ``deterministic=False`` the
         encoder's dropout draws from ``generator`` (or takes
-        ``layer_bits``, see ``models/encoder.encode``).
+        ``layer_bits``, see ``models/encoder.encode``).  ``group``: the
+        process group the aggregations are summed over (``encode``).
 
         With ``remat`` (and ``deterministic=False``) the encoder runs under
         ``torch.utils.checkpoint``: its activations are not kept but
@@ -132,7 +134,7 @@ class DecagonModel(nn.Module):
         kw = dict(
             dropout_rate=cfg.dropout, spmm_impl=cfg.spmm_impl,
             per_relation_dropout_max=cfg.per_relation_dropout_max,
-            spmm_precision=cfg.spmm_precision,
+            spmm_precision=cfg.spmm_precision, group=group,
         )
         if not (cfg.remat and not deterministic):
             return encode(

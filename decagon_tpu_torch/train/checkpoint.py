@@ -6,7 +6,9 @@ Port of ``decagon_tpu/train/checkpoint.py`` (reference
 the npy export of ``DecagonLogger._writeAsNdarray``,
 ``DecagonLogger.py:232-287``).  The JAX package writes orbax
 checkpoints; here each step is one ``torch.save`` file, ``<step>.pt``, of
-the state with every tensor moved to the CPU.
+the state with every tensor moved to the CPU.  In a multi-process run only
+rank 0 writes, and every rank waits for the file before going on; every
+rank restores.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from decagon_tpu_torch.graph.device import DeviceGraph, etkey
 from decagon_tpu_torch.graph.renumber import restore_external_rows
+from decagon_tpu_torch.parallel.mesh import barrier, process_rank
 
 
 def _map(fn, tree):
@@ -93,13 +96,18 @@ class Checkpointer:
         return os.path.join(self.directory, f"{step}.pt")
 
     def save(self, step: int, state: Dict[str, Any]) -> None:
-        path = self._path(step)
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save(_map(_to_cpu, state), tmp)
-        os.replace(tmp, path)
-        if self.max_to_keep is not None:
-            for old in self.all_steps()[: -self.max_to_keep]:
-                os.remove(self._path(old))
+        """Write ``state`` as ``<step>.pt`` (rank 0 only) and drop the
+        oldest beyond ``max_to_keep``; in a multi-process run every rank
+        calls it and returns once the file is there."""
+        if process_rank() == 0:
+            path = self._path(step)
+            tmp = f"{path}.tmp{os.getpid()}"
+            torch.save(_map(_to_cpu, state), tmp)
+            os.replace(tmp, path)
+            if self.max_to_keep is not None:
+                for old in self.all_steps()[: -self.max_to_keep]:
+                    os.remove(self._path(old))
+        barrier()
 
     def restore_latest(
         self,

@@ -153,7 +153,10 @@ def build_training_device_graph(
     """The device graph the CLI trains on: CSR layouts for ``SpmmImpl``
     "pallas"/"fused_pallas", or "auto" off the CPU; the int8 factored and
     paired stacks by default off the CPU (``DenseFactored`` /
-    ``DensePaired``)."""
+    ``DensePaired``).  With ``MeshShape`` the paired stacks are off by
+    default: the mesh trains on its own sharded graph, which has none, so
+    its weights keep the standard ``[K, F, H]`` layout and this graph is
+    the one its checkpoints restore into (``predict.export``)."""
     spmm_impl = config.model_config().spmm_impl
     on_card = device.type != "cpu"
     return build_device_graph(
@@ -169,6 +172,8 @@ def build_training_device_graph(
         dense_factored=bool(config.get("DenseFactored", on_card)),
         # Paired half-mask stacks and the paired kernels: one int8 mask
         # read serves both transpose halves of a square edge type.
-        dense_paired=bool(config.get("DensePaired", on_card)),
+        dense_paired=bool(
+            config.get("DensePaired", on_card and not config.has("MeshShape"))
+        ),
         device=device,
     )

@@ -7,7 +7,10 @@ Port of ``decagon_tpu/train/logger.py`` (reference
 ``DataSetId,Epoch,IterationNum,Loss,Latency,EvaluateAll,EdgeType,AUROC,
 AUPRC,APK``, every-N gating composed with the checkpointer's gate, a
 forced epoch-end row with the pooled drug-drug evaluation, and the npy
-export on checkpoint (``train/checkpoint.export_ndarrays``).
+export on checkpoint (``train/checkpoint.export_ndarrays``).  In a
+multi-process run every rank runs the hooks (the evaluation, the state
+gather and the embedding are collectives on a mesh) and only rank 0 writes
+the CSV, prints its rows and writes the export.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from decagon_tpu_torch.graph.container import RelationKey
+from decagon_tpu_torch.parallel.mesh import process_rank
 from decagon_tpu_torch.train.checkpoint import Checkpointer, export_ndarrays
 from decagon_tpu_torch.train.evaluate import AccuracyEvaluator, AccuracyScores
 from decagon_tpu_torch.train.trainer import IterationResult, Trainer
@@ -79,10 +83,13 @@ class MetricsLogger:
         self.relation_names = relation_names
         self.quiet = quiet
         self.iterations_done = 0
-        self.path = _next_log_path(result_dir)
-        self._file = open(self.path, "w", newline="")
-        self._writer = csv.DictWriter(self._file, fieldnames=FIELDS)
-        self._writer.writeheader()
+        self.writes = process_rank() == 0
+        self.path = self._file = None
+        if self.writes:
+            self.path = _next_log_path(result_dir)
+            self._file = open(self.path, "w", newline="")
+            self._writer = csv.DictWriter(self._file, fieldnames=FIELDS)
+            self._writer.writeheader()
 
     # ---- Trainer hooks ---------------------------------------------------
 
@@ -119,6 +126,8 @@ class MetricsLogger:
         self.checkpointer.save(trainer.global_step, trainer.state_dict())
         if self.ndarray_dir is not None:
             embeddings = trainer.eval_embeddings()
+            if not self.writes:
+                return
             export_ndarrays(
                 trainer.params,
                 embeddings,
@@ -134,6 +143,8 @@ class MetricsLogger:
         scores: AccuracyScores,
         evaluate_all: bool,
     ) -> None:
+        if not self.writes:
+            return
         row = {
             "DataSetId": self.dataset_id,
             "Epoch": result.epoch,
@@ -158,7 +169,7 @@ class MetricsLogger:
             )
 
     def close(self) -> None:
-        if not self._file.closed:
+        if self._file is not None and not self._file.closed:
             self._file.close()
 
     def __del__(self):  # pragma: no cover - best effort

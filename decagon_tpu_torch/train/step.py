@@ -50,9 +50,14 @@ class TrainConfig:
     """Optimization hyperparameters, with every field of the JAX package's
     ``TrainConfig`` and its defaults (reference ``configuration.json``).
 
-    Every field runs except the mesh path's: ``shard_weights``,
-    ``comm_overlap`` and ``grad_reduce_dtype`` are read by the mesh path
-    only, which is not ported (``Trainer(mesh=...)`` raises).
+    Every field runs.  Three are read by the mesh path only
+    (``Trainer(mesh=...)``, ``parallel/sharded.py``): ``shard_weights``
+    keeps the dense edge types' enc stacks and moments as each rank's
+    relation block; ``comm_overlap`` issues every edge type's exchange
+    before waiting for any; ``grad_reduce_dtype`` ("float32" or
+    "bfloat16") is the type the relation-sharded gradients cross the
+    ``row`` axis in, on a mesh of more than one row block.  As in the JAX
+    package the mesh steps do not cast gradients (``grad_dtype``).
     ``relation_group > 1`` needs ``scan_chunk > 0``, as in the JAX
     package; ``lr_schedule`` is ``"constant"``, ``"cosine"`` or ``"step"``
     over ``lr_schedule_steps`` optimization steps (constant when
@@ -448,6 +453,14 @@ def make_chunked_train_step(
     a loop of eager steps, so chunking saves the per-step host sync only.
     """
     loss_fns = [make_loss_fn(model, et, cfg) for et in graph.edge_types]
+    return chunk_loop(loss_fns, lambda *a, **kw: _update(cfg, optimizer, *a, **kw))
+
+
+def chunk_loop(loss_fns, update) -> Callable:
+    """The chunk of ``make_chunked_train_step`` over ``loss_fns`` (one an
+    edge type), each step taken by ``update(loss_fn, params, opt_state,
+    graph, k, rows, cols, enc_gen, sample_gen, layer_bits=, neg_u=) ->
+    (params, opt_state, loss)``; the mesh steps share it."""
 
     def chunk(params, opt_state, graph, base_seed, branch, k, rows, cols,
               step_no, valid, layer_bits=None, neg_u=None):
@@ -460,8 +473,8 @@ def make_chunked_train_step(
             enc_gen, sample_gen = split_generator(
                 step_generator(base_seed, step_no[c], graph.device)
             )
-            params, opt_state, loss = _update(
-                cfg, optimizer, loss_fns[branch[c]], params, opt_state, graph,
+            params, opt_state, loss = update(
+                loss_fns[branch[c]], params, opt_state, graph,
                 k[c], rows[c], cols[c], enc_gen, sample_gen,
                 layer_bits=None if layer_bits is None else layer_bits[c],
                 neg_u=None if neg_u is None else neg_u[c],
@@ -510,6 +523,15 @@ def make_grouped_chunked_train_step(
             total = sub if total is None else total + sub
         return total
 
+    return grouped_chunk_loop(slot_loss, lambda *a, **kw: _update(cfg, optimizer, *a, **kw))
+
+
+def grouped_chunk_loop(slot_loss, update) -> Callable:
+    """The chunk of ``make_grouped_chunked_train_step`` over ``slot_loss(
+    params, graph, branch[G], k[G], rows[G], cols[G], valid[G], enc_gen,
+    sample_gen, layer_bits=, neg_u=)``, each slot's step taken by ``update``
+    (as ``chunk_loop``'s); the mesh steps share it."""
+
     def chunk(params, opt_state, graph, base_seed, branch, k, rows, cols,
               step_no, valid, layer_bits=None, neg_u=None):
         branch, k, step_no, valid = map(_host_list, (branch, k, step_no, valid))
@@ -521,8 +543,8 @@ def make_grouped_chunked_train_step(
             enc_gen, sample_gen = split_generator(
                 step_generator(base_seed, step_no[c], graph.device)
             )
-            params, opt_state, loss = _update(
-                cfg, optimizer, slot_loss, params, opt_state, graph,
+            params, opt_state, loss = update(
+                slot_loss, params, opt_state, graph,
                 branch[c], k[c], rows[c], cols[c], slot_valid, enc_gen, sample_gen,
                 layer_bits=None if layer_bits is None else layer_bits[c],
                 neg_u=None if neg_u is None else neg_u[c],

@@ -815,3 +815,18 @@ def test_cli_on_the_card_launches_the_paired_kernels(cuda_device, tmp_path):
     export.main(["--config", str(path)])
     emb = np.load(tmp_path / "nd" / "embeddings.npy")
     assert emb.shape == (30, 4) and np.isfinite(emb).all()
+
+
+def test_mesh_ranks_on_the_card_match_the_single_process(cuda_device):
+    """``chip_smoke.py`` phase 20 (b): four ranks over gloo on this card, a
+    (2, 2) mesh, the dummy config at full width, "auto" with weight
+    sharding and "pallas" with K6 in every rank, against the single
+    process on the card (``chip_smoke.mesh_ranks`` raises past its
+    tolerances: loss 1e-5 relative, gradients 2e-4 relative plus 1e-5
+    absolute, embeddings 2e-5 relative plus 1e-6 absolute)."""
+    import chip_smoke
+
+    summary = chip_smoke.mesh_ranks(cuda_device, 0)
+    assert summary["auto"]["shard_weights"]
+    assert all(n > 0 for n in summary["pallas"]["spmm_tiled_launches_per_rank"])
+    assert all(summary["library_cached"])

@@ -49,7 +49,9 @@ def test_port_and_chip_smoke_import_no_jax():
                    "scripts.probe_paired_cuts", "cli", "config", "registry", "native",
                    "data.public", "data.record", "data.repair", "predict.predictor",
                    "predict.export", "train.active", "train.layout", "graph.ids",
-                   "scripts.np_predictor_example"):
+                   "scripts.np_predictor_example", "parallel", "parallel.mesh",
+                   "parallel.collectives", "parallel.rowshard", "parallel.sharded",
+                   "scripts.probe_mesh_step"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]

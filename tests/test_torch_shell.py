@@ -538,10 +538,16 @@ def test_cli_wires_the_greedy_scorer(tmp_path):
     assert scores[chosen].min() >= scores[~chosen].max()
 
 
-def test_cli_refuses_a_mesh(tmp_path):
-    for extra in ({"MeshShape": [2, 1]}, {"DistributedInit": True}):
+def test_cli_refuses_a_mesh(tmp_path, monkeypatch):
+    """A mesh needs a process group: without one, or without the torchrun
+    environment that ``DistributedInit`` reads, the CLI raises rather than
+    train in one process."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    for extra, match in (({"MeshShape": [2, 1]}, "process group"),
+                         ({"MeshShape": [2, 1], "DistributedInit": True}, "torchrun")):
         conf = _write_conf(tmp_path / "conf.json", TrainIterationResultDir=str(tmp_path), **extra)
-        with pytest.raises(NotImplementedError, match="parallel/"):
+        with pytest.raises(RuntimeError, match=match):
             cli.main(["--config", conf, "--set", "Device=cpu"])
 
 

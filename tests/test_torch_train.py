@@ -364,10 +364,9 @@ def test_model_config_widths_and_remat():
 
 
 def test_train_config_round_trips_and_unported_fields_raise():
-    """Every optimizer option of ``TrainConfig`` is ported now; what still
-    raises is the mesh (``Trainer(mesh=...)``, in
-    ``tests/test_torch_trainer.py``) and, as in the JAX package, a
-    schedule with the lazy decoder Adam."""
+    """Every option of ``TrainConfig`` is ported now (the mesh fields are
+    read by ``parallel/``, ``tests/test_torch_parallel.py``); what raises,
+    as in the JAX package, is a schedule with the lazy decoder Adam."""
     assert dataclasses.asdict(step_mod.TrainConfig()) == dataclasses.asdict(jax_step.TrainConfig())
     for kw in (dict(scan_chunk=4), dict(relation_group=2), dict(lazy_decoder_adam=True),
                dict(lr_schedule="cosine", lr_schedule_steps=10), dict(pallas_adam=True)):

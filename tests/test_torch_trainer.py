@@ -335,7 +335,7 @@ def test_trainer_refuses_what_the_reference_refuses(toy_world):
     with pytest.raises(ValueError):
         _trainer(toy_world, relation_group=2)
     g, s, dg, model = toy_world
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(model, g, s, dg, step_mod.TrainConfig(), mesh=object())
 
 
