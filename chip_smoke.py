@@ -53,18 +53,30 @@ Phases, each announced with the seconds elapsed since start:
    with the default ``TrainConfig`` (bf16 moments and large gradients) in
    chunks of 32 steps: one warm-up chunk and 3 timed ones; ms per step,
    edges/s in ``bench.py``'s schema, peak memory, the launches (both
-   paired kernels > 0, the one-pass Adam 0: its gate wants f32 moments),
-   and the gap to phase 7's single-step time;
-11. one-pass Adam (K7) against its plain version: the paper leaf it
-   updates (``[1, 19081, 64]``), P6's ``[1926, 64, 645]`` in f32 and in
-   P6's bf16, a length that is not a multiple of 4 and a view off 16-byte
-   alignment; bitwise equality, in place; device times (a replayed CUDA
-   graph, operands outside the L2 cache) of the kernel, the plain chain
-   and ``torch.optim.Adam(fused=True)``, and the bounds;
-12. trainer with ``pallas_adam`` (paper scale, f32 moments and gradients):
-   launch counters set to 0, one chunk of 4 steps from a copy of phase
-   10's state, which must launch the one-pass Adam once a step, and the
-   same chunk without it from another copy: parameters and moments equal;
+   paired kernels > 0, the multi-tensor Adam K7 exactly once a step: one
+   launch updates every leaf), and the gap to phase 7's single-step time;
+11. one-pass Adam (K7) against its plain version: first the main path's
+   whole leaf tree at paper scale (phase 10's parameters and bf16
+   moments, seeded f32 gradients, those of 2^20 elements or more rounded
+   to bf16 in the kernel, plus a view off 16-byte alignment and a length
+   that is not a multiple of 8) in one launch, bitwise equal to
+   ``adam_apply_ref``, with the device times (a replayed CUDA graph) of
+   the kernel, the kernel after a separate gradient cast, the plain chain
+   and ``torch.optim.Adam(fused=True)`` over the same leaves with f32
+   moments (it keeps no bf16 moments beside f32 parameters), and the
+   bounds; then one leaf at a time: the paper leaf ``[1, 19081, 64]``,
+   P6's ``[1926, 64, 645]`` in f32 and in P6's bf16, a length that is not
+   a multiple of 8 and a view off 16-byte alignment, in place;
+12. trainer chunks (paper scale), each of 4 steps from a copy of phase
+   10's state with the launch counters set to 0 just before: the default
+   config through K7 (one launch a step) and through its plain version
+   (``make_chunked_train_step`` given ``make_optimizer(cfg,
+   one_pass=adam_apply_ref)``, which no config reaches), parameters,
+   moments and losses bitwise equal; the same pair with
+   ``lazy_decoder_adam`` (the encoder's leaves through K7, the decoder's
+   through the lazy row Adam), bitwise equal; then ``pallas_adam`` with
+   f32 moments and gradients (its gate's leaf in place, in the same
+   launch) against the plain version at that config;
 13. dummy config on the card: the port's copy of the JAX package's
    ``test_dummy_config_learns_into_reference_band`` (500 genes, 400
    drugs, 3 side effects; the ``Trainer`` in chunks of 50), whose last
@@ -84,8 +96,9 @@ Phases, each announced with the seconds elapsed since start:
    set to 0, then ``make_train_step`` at "default" (2 drug-drug steps, 1
    PPI) with the forward / backward / Adam split, the ``Trainer`` at both
    precisions (chunks of 8: one warm-up, 2 timed; ms per step, edges/s,
-   peak memory) and the pooled drug-drug evaluation with bf16 scoring;
-   K6 and K5-bf16 must launch and the paired kernels not.  Then one
+   peak memory, K7's launches a step, which must be 1) and the pooled
+   drug-drug evaluation with bf16 scoring; K6 and K5-bf16 must launch and
+   the paired kernels not.  Then one
    step's gradients through K6 against its plain version at both
    precisions, and one step with ``remat`` against the same step without
    it (gradients, K6 launches, peak memory);
@@ -161,7 +174,10 @@ loads, and adds a long row's partial sums in order in a second pass.  The scorer
 (``decagon_tpu_torch/csrc/sddmm.cu``) gives an edge one to four lanes,
 keeps its product row in registers and reads the d x d matrices from
 shared memory, staged once a block; K5-bf16 reads bf16 tables, 16 bytes
-(8 elements) a load.
+(8 elements) a load.  The optimizer K7 (``decagon_tpu_torch/csrc/adam.cu``)
+updates every leaf of a step in one launch: a table of up to 48 leaves
+passed by value, a run of blocks a leaf, 8 elements a thread in 16-byte
+vectors, the gradient's bf16 cast done as it is read.
 
 The second-to-last lines are the kernel report (one JSON object) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``.
@@ -239,9 +255,10 @@ TRAIN_STEPS = {(1, 1): 4, (0, 0): 2}
 TRAINER_CHUNK = 32
 TRAINER_WINDOWS = 3
 PALLAS_CHUNK = 4
-# Phase 12 holds the chunk with the one-pass Adam against the chunk without
-# it to this share of each leaf's largest magnitude where the two are not
-# equal bit for bit (the kernel rounds as the plain chain does).
+# Phase 12 holds the ``pallas_adam`` chunk against the plain version's to
+# this share of each leaf's largest magnitude where the two are not equal
+# bit for bit (the kernel rounds as the plain chain does); the default
+# config's chunk must be equal bit for bit.
 PALLAS_REL_TOL = 1e-6
 # Epochs of the dummy-config gate (phase 13).  The JAX test reads after 3,
 # where the port's pooled test AUROC reaches 0.62 for only some trainer
@@ -971,24 +988,155 @@ def trainer_phase(graph, splits, dg, model, seed, step_ms):
         chunk_minus_single_step_ms=timing["median_ms"] - step_ms,
         launches=counts,
     )
+    summary["adam_launches_per_step"] = counts["adam"] / len(losses)
     log(f"trainer summary {json.dumps(summary)}")
+    log(f"trainer: {summary['ms_per_step_median']:.3f} ms a step (median), peak memory "
+        f"{summary['peak_memory_gib']:.2f} GiB, K7 {summary['adam_launches_per_step']:g} "
+        "launch(es) a step")
     for name in ("paired_fwd", "paired_bwd"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the Trainer's path")
-    if counts["adam"] != 0:
-        raise AssertionError("the one-pass Adam launched with bf16 moments")
+    if counts["adam"] != len(losses):
+        raise AssertionError(f"K7 launched {counts['adam']} times in {len(losses)} steps "
+                             "(one launch a step updates every leaf)")
     return counts, summary, _clone(trainer.state_dict())
 
 
-def check_adam(device):
-    """K7 and its bf16 instantiation against the plain chain.  P6's case
-    (``scripts/probe_adam_onepass.py``'s own) is timed with the launch
-    counters set to 0 just before and read just after: its launches."""
+# Phase 11's leaf tree: the main path's leaves at paper scale (phase 10's
+# parameters and bf16 moments) plus a leaf that is a view off 16-byte
+# alignment and one whose length is not a multiple of 8; device-timed calls
+# a variant.
+TREE_EXTRA = {"unaligned": (1_048_581, 3), "odd": (1_000_003, 0)}
+TREE_ITERS = 10
+
+
+def adam_tree(state, seed):
+    """(grads, Adam state, params, round_grad) for phase 11: copies of
+    ``state``'s parameters and bf16 moments, seeded f32 gradients (those
+    of at least 2^20 elements rounded to bf16 by the kernel, as the
+    default ``TrainConfig`` asks), and ``TREE_EXTRA``'s two leaves."""
+    import torch
+
+    from decagon_tpu_torch.ops.optim import tree_map
+    from decagon_tpu_torch.train.step import TrainConfig, grad_rounding
+
+    params = _clone(state["params"])
+    device = next(iter(_leaves(params).values())).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    opt = {"m": _clone(state["opt_state"]["m"]), "v": _clone(state["opt_state"]["v"]),
+           "t": state["opt_state"]["t"]}
+    params["extra"], opt["m"]["extra"], opt["v"]["extra"] = {}, {}, {}
+    for name, (n, offset) in TREE_EXTRA.items():
+        draw = lambda dt, scale=1.0: (scale * torch.randn(  # noqa: E731
+            n + offset, generator=gen, device=device)).to(dt)[offset:]
+        params["extra"][name] = draw(torch.float32)
+        opt["m"]["extra"][name] = draw(torch.bfloat16, 1e-3)
+        opt["v"]["extra"][name] = draw(torch.bfloat16, 1e-3).abs()
+    grads = tree_map(lambda p: 1e-3 * torch.randn(p.shape, generator=gen, device=device),
+                     params)
+    return grads, opt, params, grad_rounding(TrainConfig())
+
+
+def check_adam_tree(state, seed):
+    """The main path's whole leaf tree through K7 (one launch, the gradient
+    cast in registers) against ``adam_apply_ref`` on the card, bit for bit;
+    then device times (``TREE_ITERS`` calls in a replayed CUDA graph) of the
+    kernel, the kernel after ``cast_grads``' separate cast, the plain
+    chain, and ``torch.optim.Adam(fused=True)`` over the same leaves with
+    f32 moments (it keeps no bf16 moments beside f32 parameters); bytes
+    and operations bounds of the kernel's own work."""
+    import torch
+
+    from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.ops.optim import adam_apply, adam_apply_ref
+    from decagon_tpu_torch.scripts.probe_adam_onepass import onepass_flops
+    from decagon_tpu_torch.train.step import ADAM_B1, ADAM_B2, ADAM_EPS, TrainConfig, cast_grads
+
+    grads, opt, params, rounds = adam_tree(state, seed)
+    kw = dict(lr=1e-3, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS)
+    leaves = _leaves(params)
+    n = sum(p.numel() for p in leaves.values())
+    cuda_build.reset_launches()
+    got = adam_apply(grads, opt, params, **kw, round_grad=rounds)
+    torch.cuda.synchronize()
+    launches = cuda_build.LAUNCHES["adam"]
+    want = adam_apply_ref(grads, opt, params, **kw, round_grad=rounds)
+    worst, unequal = 0.0, []
+    for kind, a, b in (("p", got[0], want[0]), ("m", got[1]["m"], want[1]["m"]),
+                       ("v", got[1]["v"], want[1]["v"])):
+        for name, w in _leaves(b).items():
+            x = _leaves(a)[name]
+            if x.dtype != w.dtype or not torch.equal(x, w):
+                unequal.append(f"{kind}{name}")
+            worst = max(worst, (x.float() - w.float()).abs().max().item() if w.numel() else 0.0)
+    del got, want
+    log(f"adam leaf tree: {len(leaves)} leaves, {n} elements, {launches} launch(es); "
+        f"{len(unequal)} outputs not bitwise equal {unequal[:8]}")
+    if unequal or launches != 1:
+        raise AssertionError("K7 over the leaf tree differs from adam_apply_ref or took "
+                             f"{launches} launches")
+    nbytes = sum(x.numel() * x.element_size() for tree in (grads, opt["m"], opt["v"], params)
+                 for x in _leaves(tree).values())
+    nbytes += sum(x.numel() * x.element_size() for tree in (opt["m"], opt["v"], params)
+                  for x in _leaves(tree).values())
+    cast = TrainConfig()
+    row = dict(
+        case=f"paper leaf tree, {len(leaves)} leaves", leaves=len(leaves), elements=n,
+        shapes={k: list(p.shape) for k, p in leaves.items()}, bitwise=True,
+        max_abs_err=worst, launches_per_call=launches,
+        ms=device_ms([lambda: adam_apply(grads, opt, params, **kw, round_grad=rounds)],
+                     TREE_ITERS),
+        cast_first_ms=device_ms([lambda: adam_apply(cast_grads(cast, grads), opt, params, **kw)],
+                                TREE_ITERS),
+        plain_ms=device_ms([lambda: adam_apply_ref(grads, opt, params, **kw, round_grad=rounds)],
+                           TREE_ITERS),
+        library_ms=_fused_adam_ms(grads, opt, params, kw),
+        library="torch.optim.Adam(fused=True), f32 moments (it keeps no bf16 moments beside "
+                "f32 parameters)",
+        bytes_ms=nbytes / HBM_BYTES_S * 1e3, ops_ms=onepass_flops(n) / F32_FLOPS * 1e3,
+    )
+    row["x_bound"] = row["ms"] / max(row["bytes_ms"], row["ops_ms"])
+    row["gb_s"] = nbytes / row["ms"] / 1e6
+    log(json.dumps({k: v for k, v in row.items() if k != "shapes"}))
+    log(f"adam leaf tree shapes {json.dumps(row['shapes'])}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def _fused_adam_ms(grads, opt, params, kw):
+    """Device ms of one ``torch.optim.Adam(fused=True, capturable=True)``
+    step over copies of the tree's leaves, f32 moments from the tree's."""
+    import torch
+
+    qs = []
+    for name, p in _leaves(params).items():
+        q = p.detach().clone().requires_grad_(True)
+        q.grad = _leaves(grads)[name].clone()
+        qs.append((q, name))
+    adam = torch.optim.Adam([q for q, _ in qs], lr=kw["lr"], betas=(kw["b1"], kw["b2"]),
+                            eps=kw["eps"], fused=True, capturable=True)
+    adam.step()
+    m, v = _leaves(opt["m"]), _leaves(opt["v"])
+    for q, name in qs:
+        adam.state[q]["exp_avg"].copy_(m[name])
+        adam.state[q]["exp_avg_sq"].copy_(v[name])
+    ms = device_ms([adam.step], TREE_ITERS)
+    del adam, qs
+    return ms
+
+
+def check_adam(device, state, seed):
+    """Phase 11: the main path's leaf tree (``check_adam_tree``), then the
+    one-leaf cases of K7 and its bf16 instantiation against the plain
+    chain.  P6's case (``scripts/probe_adam_onepass.py``'s own) is timed
+    with the launch counters set to 0 just before and read just after:
+    its launches."""
     import torch
 
     from decagon_tpu_torch.ops import cuda_build
     from decagon_tpu_torch.scripts.probe_adam_onepass import make_case, run_case, time_case
 
+    tree_row = check_adam_tree(state, seed)
     cases = [
         ("paper leaf enc1/1,0 [1, 19081, 64] f32", (1, 19081, 64), torch.float32, 0, 20),
         ("P6 shape [1926, 64, 645] f32", (1926, 64, 645), torch.float32, 0, 10),
@@ -1012,62 +1160,111 @@ def check_adam(device):
         torch.cuda.empty_cache()
     if not p6_launches:
         raise AssertionError("P6's probe path never launched the one-pass Adam")
-    return rows, p6_launches
+    return tree_row, rows, p6_launches
 
 
-def pallas_trainer(graph, splits, dg, model, seed, state):
-    """One chunk with ``pallas_adam`` (f32 moments and gradients) from a
-    copy of ``state``, and the same chunk without it from another copy;
-    returns the launch counts of the first."""
+def _chunk_state(trainer):
+    state = trainer.opt_state
+    if "enc" in state:  # the lazy decoder Adam's halves
+        state = {kind: {**state["enc"][kind], **state["dec"][kind]} for kind in "mv"}
+    return _leaves(trainer.params), _leaves(state["m"]), _leaves(state["v"])
+
+
+def _lazy_state(opt_state):
+    """Phase 10's fused Adam state as ``lazy_decoder_adam``'s: the encoder's
+    leaves as they are, the decoder's moments in f32 (the lazy row Adam
+    keeps them in the parameters' dtype), one step count."""
+    def half(keep, dtype=None):
+        return {kind: _clone({key: tree for key, tree in opt_state[kind].items()
+                              if (key == "dec") == keep}, dtype) for kind in "mv"}
+
+    import torch
+
+    return {"enc": dict(half(False), t=opt_state["t"]),
+            "dec": dict(half(True, torch.float32), t=opt_state["t"])}
+
+
+def optimizer_chunks(graph, splits, dg, model, seed, state):
+    """Phase 12: chunks of ``PALLAS_CHUNK`` steps from copies of phase 10's
+    ``state``, each with the launch counters set to 0 just before: the
+    default config through K7 and through the plain version
+    (``make_chunked_train_step`` given ``make_optimizer(cfg,
+    one_pass=adam_apply_ref)``, a path no ``TrainConfig`` field reaches),
+    the same pair with ``lazy_decoder_adam`` (the encoder's leaves through
+    K7, the decoder's through the lazy row Adam), then ``pallas_adam``
+    with f32 moments and gradients (its gate's leaves in place) and the
+    plain version at that config.  Parameters and moments must be bitwise
+    equal (within ``PALLAS_REL_TOL`` for ``pallas_adam``, as before);
+    returns the launch counts of the kernel chunks and a summary."""
     import dataclasses
 
     import torch
 
     from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.ops.optim import adam_apply_ref
     from decagon_tpu_torch.timing import hard_sync
-    from decagon_tpu_torch.train.step import TrainConfig
+    from decagon_tpu_torch.train.step import TrainConfig, make_chunked_train_step, make_optimizer
     from decagon_tpu_torch.train.trainer import Trainer
 
-    cfg = TrainConfig(batch_size=512, scan_chunk=PALLAS_CHUNK, pallas_adam=True,
-                      adam_moments_dtype="float32", grad_dtype="float32")
+    default = TrainConfig(batch_size=512, scan_chunk=PALLAS_CHUNK)
+    f32 = dataclasses.replace(default, pallas_adam=True, adam_moments_dtype="float32",
+                              grad_dtype="float32")
     opt32 = {"m": _clone(state["opt_state"]["m"], torch.float32),
              "v": _clone(state["opt_state"]["v"], torch.float32), "t": state["opt_state"]["t"]}
-    start = dict(state, opt_state=opt32)
-    out = {}
+    lazy = dataclasses.replace(default, lazy_decoder_adam=True)
+    starts = {"default": state, "lazy_decoder_adam": dict(
+        state, opt_state=_lazy_state(state["opt_state"])), "pallas_adam": dict(
+        state, opt_state=opt32)}
+    out, counts, summary = {}, {}, {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        for pallas in (True, False):
-            trainer = Trainer(model, graph, splits, dg, dataclasses.replace(cfg, pallas_adam=pallas),
-                              seed=seed, init_state=_clone(start))
-            epoch = trainer.scheduler.epoch()
-            batches = [next(epoch) for _ in range(PALLAS_CHUNK)]
-            cuda_build.reset_launches()
-            losses = trainer.train_chunk(batches, PALLAS_CHUNK)
-            hard_sync(trainer.params)
-            out[pallas] = (dict(cuda_build.LAUNCHES), losses.cpu(), _leaves(trainer.params),
-                           _leaves(trainer.opt_state["m"]), _leaves(trainer.opt_state["v"]))
+        for label, cfg in (("default", default), ("lazy_decoder_adam", lazy),
+                           ("pallas_adam", f32)):
+            for plain in (False, True):
+                trainer = Trainer(model, graph, splits, dg, cfg, seed=seed,
+                                  init_state=_clone(starts[label]))
+                if plain:
+                    # pallas_adam picks the leaves updated in place; the
+                    # plain version writes new tensors for every leaf.
+                    plain_cfg = dataclasses.replace(cfg, pallas_adam=False)
+                    trainer._chunk_fn = make_chunked_train_step(
+                        model, dg, plain_cfg, make_optimizer(plain_cfg, one_pass=adam_apply_ref))
+                epoch = trainer.scheduler.epoch()
+                batches = [next(epoch) for _ in range(PALLAS_CHUNK)]
+                cuda_build.reset_launches()
+                losses = trainer.train_chunk(batches, PALLAS_CHUNK)
+                hard_sync(trainer.params)
+                out[plain] = (dict(cuda_build.LAUNCHES), losses.cpu(), _chunk_state(trainer))
+                del trainer
+            (kc, lk, got), (pc, lp, want) = out[False], out[True]
+            log(f"{label} chunk: adam launches {kc['adam']} through K7, {pc['adam']} through "
+                f"the plain version; losses {lk.tolist()} / {lp.tolist()}")
+            if kc["adam"] != PALLAS_CHUNK or pc["adam"] != 0:
+                raise AssertionError(f"{label}: K7 launched {kc['adam']} times in "
+                                     f"{PALLAS_CHUNK} steps, {pc['adam']} in the plain chunk")
+            worst, unequal = 0.0, []
+            for kind, a, b in zip("pmv", got, want):
+                for name, w in b.items():
+                    if a[name].dtype == w.dtype and torch.equal(a[name], w):
+                        continue
+                    unequal.append(f"{kind}{name}")
+                    err = (a[name].float() - w.float()).abs().max().item()
+                    worst = max(worst, err / max(w.float().abs().max().item(), 1e-30))
+            log(f"{label} chunk through K7 against the plain version: {len(unequal)} leaves not "
+                f"bitwise equal {unequal[:8]}, worst {worst:.3g} of the leaf's max")
+            if label != "pallas_adam":
+                same = not unequal and torch.equal(lk, lp)
+            else:
+                same = worst <= PALLAS_REL_TOL and torch.allclose(lk, lp, rtol=1e-5, atol=0.0)
+            if not same:
+                raise AssertionError(f"{label}: the chunk through K7 differs from the plain one")
+            counts[label] = kc
+            summary[label] = dict(steps=PALLAS_CHUNK, launches=kc["adam"],
+                                  bitwise_equal=not unequal, unequal_leaves=unequal,
+                                  worst_rel_err=worst)
     finally:
         torch.use_deterministic_algorithms(False)
-    (counts, lk, pk, mk, vk), (counts_plain, lp, pp, mp, vp) = out[True], out[False]
-    log(f"pallas_adam chunk: launches {counts} (without: {counts_plain}); losses {lk.tolist()} "
-        f"/ {lp.tolist()}")
-    if counts["adam"] != PALLAS_CHUNK or counts_plain["adam"] != 0:
-        raise AssertionError(f"one-pass Adam launched {counts['adam']} times in "
-                             f"{PALLAS_CHUNK} steps (one eligible leaf a step)")
-    worst, unequal = 0.0, []
-    for kind, got, want in (("param", pk, pp), ("m", mk, mp), ("v", vk, vp)):
-        for name, w in want.items():
-            if torch.equal(got[name], w):
-                continue
-            unequal.append(f"{kind}{name}")
-            err = (got[name] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
-            worst = max(worst, err)
-    log(f"pallas_adam chunk against the chain: {len(unequal)} leaves not bitwise equal "
-        f"{unequal[:8]}, worst {worst:.3g} of the leaf's max (bound {PALLAS_REL_TOL})")
-    if worst > PALLAS_REL_TOL or not torch.allclose(lk, lp, rtol=1e-5, atol=0.0):
-        raise AssertionError("the chunk with the one-pass Adam differs from the chain's")
-    return counts, dict(steps=PALLAS_CHUNK, launches=counts, bitwise_equal=not unequal,
-                        unequal_leaves=unequal, worst_rel_err=worst)
+    return {name: sum(c[name] for c in counts.values()) for name in counts["default"]}, summary
 
 
 def checkpoint_round_trip(trainer, evaluator, seed):
@@ -1254,6 +1451,7 @@ def sparse_training(graph, splits, dg, seed):
         torch.cuda.reset_peak_memory_stats()
         trainer = Trainer(sparse_model(dg, precision), graph, splits, dg,
                           TrainConfig(batch_size=512, scan_chunk=SPARSE_CHUNK), seed=seed)
+        adam_before = cuda_build.LAUNCHES["adam"]
         timing = steady_state_ms(trainer, SPARSE_CHUNK, SPARSE_WINDOWS)
         losses = timing.pop("losses")
         if not bool(torch.isfinite(losses).all()):
@@ -1262,7 +1460,10 @@ def sparse_training(graph, splits, dg, seed):
             steps=len(losses), chunk=SPARSE_CHUNK, last_losses=losses[-4:].tolist(),
             **config_metrics(nnz, timing),
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            adam_launches_per_step=(cuda_build.LAUNCHES["adam"] - adam_before) / len(losses),
         )
+        if summary["trainer"][precision]["adam_launches_per_step"] != 1:
+            raise AssertionError(f"sparse trainer ({precision}): K7 did not launch once a step")
         log(f"sparse trainer ({precision}) {json.dumps(summary['trainer'][precision])}")
         del trainer
     t = time.perf_counter()
@@ -2131,7 +2332,7 @@ def framework_shell(device, seed):
 
 
 # Kernels whose first port was redesigned for the card (marked in the report).
-REDESIGNED = ("paired_fwd", "paired_bwd", "sddmm", "sddmm_bf16", "spmm_tiled")
+REDESIGNED = ("paired_fwd", "paired_bwd", "sddmm", "sddmm_bf16", "spmm_tiled", "adam")
 
 
 def kernel_entry(name, source, replaces, launches, rows, library_rows=None, cases=None):
@@ -2219,10 +2420,10 @@ def main(argv=None) -> int:
                                                            step_ms)
 
     phase("one-pass Adam against plain versions")
-    adam_rows, p6_launches = check_adam(device)
+    adam_tree_row, adam_rows, p6_launches = check_adam(device, state, args.seed)
 
-    phase("trainer with pallas_adam (paper scale)")
-    pallas_counts, pallas_summary = pallas_trainer(graph, splits, dg, model, args.seed, state)
+    phase("trainer chunks through K7 and its plain version, and with pallas_adam (paper scale)")
+    chunk_counts, chunk_summary = optimizer_chunks(graph, splits, dg, model, args.seed, state)
     del state
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -2267,15 +2468,21 @@ def main(argv=None) -> int:
 
     phase("done")
     launches = {name: counts[name] + train_counts[name] + trainer_counts[name]
-                + pallas_counts[name] + sparse_counts[name] + mesh_counts[name]
+                + chunk_counts[name] + sparse_counts[name] + mesh_counts[name]
                 for name in train_counts}
     log(f"launches on the main path: serve {counts}, train {train_counts}, trainer "
-        f"{trainer_counts}, trainer with pallas_adam {pallas_counts}, sparse {sparse_counts}, "
-        f"mesh {mesh_counts}")
-    # The one-pass Adam's line: the leaf the main path gives it, then the
-    # other f32 cases (K7's contract); P6's bf16 case is listed beside them
-    # (no library call takes bf16 moments with f32 parameters).
-    k7_rows = [r for r in adam_rows if r["dtype"] == "float32"]
+        f"{trainer_counts}, trainer chunks of phase 12 {chunk_counts}, sparse "
+        f"{sparse_counts}, mesh {mesh_counts}")
+    # K7's line: the main path's leaf tree (its library call, over the same
+    # leaves, keeps f32 moments); the one-leaf cases are listed beside it.
+    # P6's bf16 case has its own line.
+    k7 = kernel_entry("adam", "decagon_tpu_torch/csrc/adam.cu", "decagon_tpu/ops/optim.py:133",
+                      launches["adam"], [adam_tree_row], library_rows=[adam_tree_row],
+                      cases=[adam_tree_row] + adam_rows)
+    k7.update(library=adam_tree_row["library"], launches_by_phase={
+        "train_steps_phase7": train_counts["adam"], "trainer_phase10": trainer_counts["adam"],
+        "trainer_chunks_phase12": chunk_counts["adam"], "sparse_phase16": sparse_counts["adam"],
+        "mesh_phase20a": mesh_counts["adam"]})
     report = {"kernels": [
         kernel_entry("paired_fwd", "decagon_tpu_torch/csrc/paired_fwd.cu",
                      "decagon_tpu/ops/spmm_paired.py:82", launches["paired_fwd"],
@@ -2296,9 +2503,7 @@ def main(argv=None) -> int:
                      "decagon_tpu/ops/spmm_pallas.py:42", launches["spmm_tiled"],
                      spmm_rows, library_rows=spmm_rows,
                      cases=spmm_rows + spmm_bf16_rows + mesh_k6_rows),
-        kernel_entry("adam", "decagon_tpu_torch/csrc/adam.cu",
-                     "decagon_tpu/ops/optim.py:133", launches["adam"], k7_rows,
-                     library_rows=k7_rows, cases=adam_rows),
+        k7,
         # P6: the bf16 instantiation of K7 at the probe's shape, its
         # launches those of its own timing path in phase 11.
         kernel_entry("probe_adam_onepass", "decagon_tpu_torch/csrc/adam.cu",
@@ -2310,7 +2515,7 @@ def main(argv=None) -> int:
                      cases=probe_rows[name])
         for name, source, replaces in PROBES
         for head in [[r for r in probe_rows[name] if r["case"] == probe_heads[name]]]
-    ], "train": train_summary, "trainer": trainer_summary, "pallas_adam": pallas_summary,
+    ], "train": train_summary, "trainer": trainer_summary, "optimizer_chunks": chunk_summary,
         "dummy_gate": gate, "sparse_state": sparse_summary, "sparse_training": sparse_train,
         "framework_shell": shell,
         "mesh": {"paper": mesh_paper_summary, "ranks": mesh_ranks_summary}}

@@ -1,4 +1,5 @@
-// One-pass Adam update, in place, for Hopper (sm_90a).
+// Multi-tensor one-pass Adam for Hopper (sm_90a): one launch updates every
+// leaf of an optimizer step.
 //
 // Replaces the TPU kernel decagon_tpu/ops/optim.py::_adam_kernel (via
 // _adam_leaf / fused_adam_apply), and its probe
@@ -8,42 +9,79 @@
 //   v' = b2 v + (1 - b2) g^2
 //   p' = p + (-lr) (s1 m') / (sqrt(s2 v') + eps)
 //
-// m, v and p are overwritten (the TPU kernel aliases them to its outputs).
-// Two instantiations: g, m, v f32 (the kernel of fused_adam_apply) and
-// g, m, v bf16 with f32 arithmetic (the probe's case); p is f32 in both.
+// A launch takes a table of up to MAX_LEAVES leaves as one by-value kernel
+// parameter (no host-to-device copy).  Each leaf has its own dtypes:
+// g f32, bf16, or f32 rounded to bf16 as it is read (the gradient cast of
+// train/step.py::cast_grads, fused); m and v both f32 or both bf16; p f32.
+// Each leaf has its own outputs for m, v and p: equal to the inputs for an
+// update in place, other tensors for one out of place.
 //
 // Bound on this card: bytes.  Each element reads g, m, v, p once and
-// writes m, v, p once (28 bytes in f32, 18 with bf16 g/m/v) for about a
-// dozen f32 operations.
+// writes m, v, p once (18 bytes with bf16 g, m, v; 28 with f32) for about
+// a dozen f32 operations.
 //
 // Design.  The TPU kernel tiles each leaf in its natural [d0, d1, h] shape
 // because a reshape there is a relayout; a contiguous tensor here is flat
-// for free.  Each thread of a grid-stride loop moves 16 bytes of g, m and
-// v (4 f32 or 8 bf16 elements) and the matching f32 p with vector loads
-// and stores; the elements after the last whole vector, and every element
-// when the wrapper finds a pointer that is not 16-byte aligned
-// (n_vec == 0), go through a scalar grid-stride loop.
+// for free, whatever its rank.  The host gives each leaf a run of blocks
+// (as many as its 8-element vectors need, at most MAX_LEAF_BLOCKS); a
+// block finds its leaf by a binary search over the runs' first blocks
+// (uniform over the block, read from the constant bank through
+// __grid_constant__) and walks its leaf's vectors with a stride of the
+// run's threads.  A thread moves 8 elements a step: 16 bytes of each bf16
+// tensor, two 16-byte vectors of each f32 one.  Every leaf whose seven
+// pointers are 16-byte aligned takes the vector loop; its last n % 8
+// elements, and every element of a leaf that is not aligned, go through a
+// scalar loop.  The dtype switch is uniform over a block.
 //
 // Every operation is rounded on its own (__fmul_rn, __fadd_rn, __fdiv_rn,
-// __fsqrt_rn) in the order of the plain PyTorch chain, so nothing
-// contracts into an FMA and the result equals the chain's bit for bit.
+// __fsqrt_rn) in the order of the plain PyTorch chain (ops/optim.py::
+// _chain), so nothing contracts into an FMA and the result equals the
+// chain's bit for bit; the bf16 roundings are round-to-nearest-even, as
+// PyTorch's casts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int VEC = 8;  // elements a thread moves per vector step
+// 48 leaves of 72 bytes and the scalars keep the kernel's parameters
+// under the long-standing 4 KB limit on kernel parameters.
+constexpr int MAX_LEAVES = 48;
+constexpr int MAX_LEAF_BLOCKS = 132 * 32;
+
+// Leaf codes: bits 0-1 the gradient (G_*), bit 2 bf16 moments, bit 3 the
+// vector loop.
+constexpr int G_F32 = 0, G_BF16 = 1, G_ROUND = 2;
+constexpr int M_BF16 = 4, VECTORIZED = 8;
+
+struct Leaf {
+  const void* g;
+  const void* m;
+  const void* v;
+  const float* p;
+  void* m_out;
+  void* v_out;
+  float* p_out;
+  long long n;
+  int block0;  // first block of this leaf's run
+  int code;
+};
 
 struct Consts {
   float b1, omb1, b2, omb2, s1, s2, neg_lr, eps;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }
-__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) { *out = __float2bfloat16_rn(x); }
+struct Table {
+  Leaf leaf[MAX_LEAVES];
+  Consts c;
+  int count;
+  int blocks;
+};
 
 // One element: returns p', writes m', v' (f32) through the references.
 __device__ __forceinline__ float adam_elem(float g, float& m, float& v, float p, const Consts& c) {
@@ -54,81 +92,158 @@ __device__ __forceinline__ float adam_elem(float g, float& m, float& v, float p,
   return __fadd_rn(p, __fdiv_rn(num, den));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-adam_kernel(const T* __restrict__ g, T* __restrict__ m, T* __restrict__ v,
-            float* __restrict__ p, long long n, long long n_vec, Consts c) {
-  constexpr int E = 16 / sizeof(T);  // elements per 16-byte vector of g, m, v
-  const long long tid = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = tid; i < n_vec; i += stride) {
-    const long long e0 = i * E;
-    alignas(16) T gl[E], ml[E], vl[E];
-    *reinterpret_cast<uint4*>(gl) = *reinterpret_cast<const uint4*>(g + e0);
-    *reinterpret_cast<uint4*>(ml) = *reinterpret_cast<const uint4*>(m + e0);
-    *reinterpret_cast<uint4*>(vl) = *reinterpret_cast<const uint4*>(v + e0);
-    float pf[E];
+__device__ __forceinline__ float load1(const float* x, long long i) { return x[i]; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* x, long long i) {
+  return __bfloat162float(x[i]);
+}
+__device__ __forceinline__ void store1(float* x, long long i, float f) { x[i] = f; }
+__device__ __forceinline__ void store1(__nv_bfloat16* x, long long i, float f) {
+  x[i] = __float2bfloat16_rn(f);
+}
+
+__device__ __forceinline__ void load8(const float* x, float* out) {
+  const float4 a = reinterpret_cast<const float4*>(x)[0];
+  const float4 b = reinterpret_cast<const float4*>(x)[1];
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* x, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(x);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int q = 0; q < E; q += 4) {
-      const float4 p4 = *reinterpret_cast<const float4*>(p + e0 + q);
-      pf[q] = p4.x; pf[q + 1] = p4.y; pf[q + 2] = p4.z; pf[q + 3] = p4.w;
-    }
-#pragma unroll
-    for (int q = 0; q < E; ++q) {
-      float mf = to_f32(ml[q]), vf = to_f32(vl[q]);
-      pf[q] = adam_elem(to_f32(gl[q]), mf, vf, pf[q], c);
-      from_f32(mf, &ml[q]);
-      from_f32(vf, &vl[q]);
-    }
-    *reinterpret_cast<uint4*>(m + e0) = *reinterpret_cast<const uint4*>(ml);
-    *reinterpret_cast<uint4*>(v + e0) = *reinterpret_cast<const uint4*>(vl);
-#pragma unroll
-    for (int q = 0; q < E; q += 4) {
-      *reinterpret_cast<float4*>(p + e0 + q) = make_float4(pf[q], pf[q + 1], pf[q + 2], pf[q + 3]);
-    }
+  for (int q = 0; q < 4; ++q) {
+    const float2 f = __bfloat1622float2(h[q]);
+    out[2 * q] = f.x;
+    out[2 * q + 1] = f.y;
   }
-  for (long long e = n_vec * E + tid; e < n; e += stride) {
-    float mf = to_f32(m[e]), vf = to_f32(v[e]);
-    p[e] = adam_elem(to_f32(g[e]), mf, vf, p[e], c);
-    from_f32(mf, &m[e]);
-    from_f32(vf, &v[e]);
+}
+__device__ __forceinline__ void store8(float* x, const float* in) {
+  reinterpret_cast<float4*>(x)[0] = make_float4(in[0], in[1], in[2], in[3]);
+  reinterpret_cast<float4*>(x)[1] = make_float4(in[4], in[5], in[6], in[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* x, const float* in) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) h[q] = __floats2bfloat162_rn(in[2 * q], in[2 * q + 1]);
+  *reinterpret_cast<uint4*>(x) = u;
+}
+
+// The gradient as the chain reads it: f32, after the bf16 cast for G_ROUND.
+template <int GK>
+__device__ __forceinline__ float grad(float x) {
+  return GK == G_ROUND ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+// Blocks j of nb of one leaf: the vector loop (vectorized leaves), then
+// the scalar loop over what is left.  GT: g's storage, MT: m's and v's.
+template <int GK, typename MT>
+__device__ __forceinline__ void leaf_pass(const Leaf& L, long long j, long long nb,
+                                          const Consts& c) {
+  using GT = typename std::conditional<GK == G_BF16, __nv_bfloat16, float>::type;
+  const GT* g = static_cast<const GT*>(L.g);
+  const MT* m = static_cast<const MT*>(L.m);
+  const MT* v = static_cast<const MT*>(L.v);
+  MT* m_out = static_cast<MT*>(L.m_out);
+  MT* v_out = static_cast<MT*>(L.v_out);
+  const long long n = L.n;
+  const long long n_vec = (L.code & VECTORIZED) ? n / VEC : 0;
+  const long long tid = j * blockDim.x + threadIdx.x;
+  const long long stride = nb * blockDim.x;
+  for (long long i = tid; i < n_vec; i += stride) {
+    const long long e0 = i * VEC;
+    float gf[VEC], mf[VEC], vf[VEC], pf[VEC];
+    load8(g + e0, gf);
+    load8(m + e0, mf);
+    load8(v + e0, vf);
+    load8(L.p + e0, pf);
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) pf[q] = adam_elem(grad<GK>(gf[q]), mf[q], vf[q], pf[q], c);
+    store8(m_out + e0, mf);
+    store8(v_out + e0, vf);
+    store8(L.p_out + e0, pf);
+  }
+  for (long long e = n_vec * VEC + tid; e < n; e += stride) {
+    float mf = load1(m, e), vf = load1(v, e);
+    const float pf = adam_elem(grad<GK>(load1(g, e)), mf, vf, L.p[e], c);
+    store1(m_out, e, mf);
+    store1(v_out, e, vf);
+    L.p_out[e] = pf;
   }
 }
 
-template <typename T>
-int launch(const void* g, void* m, void* v, void* p, long long n, int vectorized,
-           int block_threads, const Consts& c, cudaStream_t s) {
-  constexpr int E = 16 / sizeof(T);
-  const long long n_vec = vectorized ? n / E : 0;
-  const long long work = n_vec > 0 ? n_vec : n;
-  long long blocks = (work + block_threads - 1) / block_threads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  if (blocks < 1) blocks = 1;
-  adam_kernel<T><<<static_cast<unsigned>(blocks), block_threads, 0, s>>>(
-      static_cast<const T*>(g), static_cast<T*>(m), static_cast<T*>(v),
-      static_cast<float*>(p), n, n_vec, c);
-  return cudaGetLastError();
+template <typename MT>
+__device__ __forceinline__ void dispatch_g(const Leaf& L, long long j, long long nb,
+                                           const Consts& c) {
+  switch (L.code & 3) {
+    case G_F32: leaf_pass<G_F32, MT>(L, j, nb, c); break;
+    case G_BF16: leaf_pass<G_BF16, MT>(L, j, nb, c); break;
+    default: leaf_pass<G_ROUND, MT>(L, j, nb, c); break;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) adam_multi_kernel(const __grid_constant__ Table t) {
+  // The last leaf whose run starts at or before this block.
+  const int b = static_cast<int>(blockIdx.x);
+  int lo = 0, hi = t.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.leaf[mid].block0 <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  const Leaf& L = t.leaf[lo];
+  const int end = lo + 1 < t.count ? t.leaf[lo + 1].block0 : t.blocks;
+  const long long j = b - L.block0, nb = end - L.block0;
+  if (L.code & M_BF16) dispatch_g<__nv_bfloat16>(L, j, nb, t.c);
+  else dispatch_g<float>(L, j, nb, t.c);
 }
 
 }  // namespace
 
 extern "C" {
 
-// g, m, v: n elements of f32 (bf16 == 0) or bf16 (bf16 == 1); p: n f32.
-// m, v, p are updated in place.  vectorized: all four pointers are 16-byte
-// aligned (the wrapper checks).  block_threads: 32..THREADS, a multiple
-// of 32.  The scalars arrive as f32, rounded on the host as PyTorch rounds
-// a Python scalar for an f32 operation.
-int dt_adam(const void* g, void* m, void* v, void* p, long long n, int bf16,
-            int vectorized, int block_threads, float b1, float omb1, float b2,
-            float omb2, float s1, float s2, float neg_lr, float eps, void* stream) {
-  if (n < 0 || block_threads < 32 || block_threads > THREADS || block_threads % 32 != 0)
+// One launch over ``count`` (1..MAX_LEAVES) leaves.  ptrs: 7 pointers a
+// leaf, in the order g, m, v, p, m_out, v_out, p_out; ns: each leaf's
+// element count (> 0); codes: each leaf's G_* | M_BF16 | VECTORIZED (the
+// wrapper sets VECTORIZED only where all seven pointers are 16-byte
+// aligned).  block_threads: 32..THREADS, a multiple of 32.  The scalars
+// arrive as f32, rounded on the host as PyTorch rounds a Python scalar for
+// an f32 operation.
+int dt_adam_multi(int count, void* const* ptrs, const long long* ns, const int* codes,
+                  int block_threads, float b1, float omb1, float b2, float omb2, float s1,
+                  float s2, float neg_lr, float eps, void* stream) {
+  if (count < 1 || count > MAX_LEAVES || block_threads < 32 || block_threads > THREADS ||
+      block_threads % 32 != 0)
     return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const Consts c{b1, omb1, b2, omb2, s1, s2, neg_lr, eps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(g, m, v, p, n, vectorized, block_threads, c, s);
-  return launch<float>(g, m, v, p, n, vectorized, block_threads, c, s);
+  Table t;
+  t.c = Consts{b1, omb1, b2, omb2, s1, s2, neg_lr, eps};
+  t.count = count;
+  long long blocks = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long n = ns[i];
+    const int code = codes[i];
+    if (n <= 0 || (code & 3) == 3 || (code & ~15) != 0) return cudaErrorInvalidValue;
+    const long long n_vec = (code & VECTORIZED) ? n / VEC : 0;
+    const long long work = n_vec > 0 ? n_vec : n;
+    long long nb = (work + block_threads - 1) / block_threads;
+    if (nb > MAX_LEAF_BLOCKS) nb = MAX_LEAF_BLOCKS;
+    Leaf& L = t.leaf[i];
+    L.g = ptrs[7 * i];
+    L.m = ptrs[7 * i + 1];
+    L.v = ptrs[7 * i + 2];
+    L.p = static_cast<const float*>(ptrs[7 * i + 3]);
+    L.m_out = ptrs[7 * i + 4];
+    L.v_out = ptrs[7 * i + 5];
+    L.p_out = static_cast<float*>(ptrs[7 * i + 6]);
+    L.n = n;
+    L.block0 = static_cast<int>(blocks);
+    L.code = code;
+    blocks += nb;
+  }
+  t.blocks = static_cast<int>(blocks);
+  adam_multi_kernel<<<static_cast<unsigned>(blocks), block_threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(t);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -151,9 +151,9 @@ def library() -> ctypes.CDLL:
             lib.dt_sddmm.argtypes = [
                 _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P,
             ]
-            lib.dt_adam.restype = _I
-            lib.dt_adam.argtypes = [
-                _P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P,
+            lib.dt_adam_multi.restype = _I
+            lib.dt_adam_multi.argtypes = [
+                _I, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P,
             ]
             lib.dt_spmm_tiled.restype = _I
             lib.dt_spmm_tiled.argtypes = [

@@ -4,8 +4,9 @@ probe P6, ``scripts/probe_adam_onepass.py``).
     python -m decagon_tpu_torch.scripts.probe_adam_onepass
 
 At P6's leaf shape ``[1926, 64, 645]`` it runs two cases: bf16 g, m, v
-with f32 p (P6's), and f32 throughout (the contract of
-``ops/optim.fused_adam_apply``'s kernel).  Each case first checks one
+with f32 p (P6's), and f32 throughout (``pallas_adam``'s in-place leaves),
+each through the one-leaf entry ``adam_onepass`` of the multi-tensor
+kernel K7.  Each case first checks one
 kernel call against ``adam_onepass_ref`` (bit for bit, in place), then
 times 20 calls on the device alone (``probing.device_ms``: one CUDA graph
 of the calls, replayed between CUDA events, each call on operands that

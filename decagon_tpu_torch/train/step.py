@@ -1,8 +1,9 @@
 """Train and evaluation steps.
 
 Port of ``decagon_tpu/train/step.py``: ``TrainConfig``, the optimizer
-(fused Adam with its learning-rate schedules, the lazy decoder Adam, the
-one-pass Adam kernel K7 behind ``pallas_adam``), the single step
+(fused Adam with its learning-rate schedules, whose update on CUDA is one
+launch of the multi-tensor one-pass Adam kernel K7 for every leaf; the
+lazy decoder Adam; ``pallas_adam``'s in-place leaves), the single step
 ``make_train_step``, the chunked steps ``make_chunked_train_step`` and
 ``make_grouped_chunked_train_step``, and the evaluation steps
 ``make_eval_scores``, ``make_embed_fn`` and ``make_emb_scores``.  Each
@@ -37,7 +38,7 @@ from decagon_tpu_torch.models.model import DecagonModel
 from decagon_tpu_torch.ops.optim import (
     GradientTransformation,
     fused_adam,
-    fused_adam_apply,
+    pallas_gate,
     tree_map,
 )
 from decagon_tpu_torch.ops.sddmm_pallas import MAX_DIM as SDDMM_MAX_DIM
@@ -61,9 +62,10 @@ class TrainConfig:
     ``relation_group > 1`` needs ``scan_chunk > 0``, as in the JAX
     package; ``lr_schedule`` is ``"constant"``, ``"cosine"`` or ``"step"``
     over ``lr_schedule_steps`` optimization steps (constant when
-    ``lr_schedule_steps <= 0``); ``pallas_adam`` sends 3-D f32 leaves of at
-    least 2^20 elements through the one-pass Adam kernel on CUDA when
-    there is no schedule and no lazy decoder Adam.
+    ``lr_schedule_steps <= 0``); ``pallas_adam`` updates 3-D f32 leaves of
+    at least 2^20 elements in place (in the same launch of the one-pass
+    Adam kernel as the other leaves) on CUDA when there is no schedule and
+    no lazy decoder Adam.
     """
 
     batch_size: int = 512
@@ -155,7 +157,18 @@ def _decoder_split(enc: GradientTransformation, dec_opt: GradientTransformation)
         both = {**u_enc, **u_dec}
         return {k: both[k] for k in grads}, {"enc": s_enc, "dec": s_dec}
 
-    return GradientTransformation(init, update)
+    def apply(grads, state, params, round_grad=None, in_place=None):
+        # ``enc``'s one-pass update for its subtree; ``dec_opt``'s update
+        # and ``p + u`` for the decoder's, its gradients cast first.
+        (g_enc, g_dec), (p_enc, p_dec) = parts(grads), parts(params)
+        p_enc, s_enc = enc.apply(g_enc, state["enc"], p_enc, round_grad, in_place)
+        if round_grad is not None:
+            g_dec = tree_map(lambda g: g.to(torch.bfloat16) if round_grad(g) else g, g_dec)
+        u_dec, s_dec = dec_opt.update(g_dec, state["dec"])
+        both = {**p_enc, **tree_map(lambda p, u: (p + u).to(p.dtype), p_dec, u_dec)}
+        return {k: both[k] for k in params}, {"enc": s_enc, "dec": s_dec}
+
+    return GradientTransformation(init, update, apply)
 
 
 def _lr_schedule_fn(cfg: TrainConfig) -> Optional[Callable[[int], float]]:
@@ -187,10 +200,14 @@ def _lr_schedule_fn(cfg: TrainConfig) -> Optional[Callable[[int], float]]:
     raise ValueError(f"unknown lr_schedule: {kind}")
 
 
-def make_optimizer(cfg: TrainConfig) -> GradientTransformation:
+def make_optimizer(
+    cfg: TrainConfig, one_pass: Optional[Callable] = None
+) -> GradientTransformation:
     """The fused Adam with the configured moment dtype and learning-rate
     schedule; with ``lazy_decoder_adam`` the decoder subtree takes the lazy
-    row Adam instead (no schedule allowed there, as in the JAX package)."""
+    row Adam instead (no schedule allowed there, as in the JAX package).
+    ``one_pass``: the fused Adam's ``apply`` (``ops/optim.adam_apply``
+    unless given; ``adam_apply_ref`` runs the plain version on the card)."""
     if cfg.loss not in LOSSES:
         raise ValueError(f"unknown loss: {cfg.loss!r}")
     moments = (
@@ -199,7 +216,7 @@ def make_optimizer(cfg: TrainConfig) -> GradientTransformation:
     schedule = _lr_schedule_fn(cfg)
     adam = fused_adam(
         cfg.learning_rate, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS,
-        moments_dtype=moments, schedule=schedule,
+        moments_dtype=moments, schedule=schedule, one_pass=one_pass,
     )
     if not cfg.lazy_decoder_adam:
         return adam
@@ -208,43 +225,38 @@ def make_optimizer(cfg: TrainConfig) -> GradientTransformation:
     return _decoder_split(adam, _lazy_rows_adam(cfg.learning_rate, ADAM_B1, ADAM_B2, ADAM_EPS))
 
 
+def grad_rounding(cfg: TrainConfig) -> Optional[Callable[[torch.Tensor], bool]]:
+    """Which gradient leaves ``grad_dtype`` rounds to bf16: those of at
+    least 2^20 elements when it is bf16 (None: none)."""
+    if cfg.grad_dtype not in ("bfloat16", "bf16"):
+        return None
+    return lambda g: g.numel() >= (1 << 20)
+
+
 def cast_grads(cfg: TrainConfig, grads):
     """Cast gradient leaves of at least 2^20 elements to bf16 when
     ``grad_dtype`` is bf16; smaller leaves stay f32."""
-    if cfg.grad_dtype not in ("bfloat16", "bf16"):
+    rounds = grad_rounding(cfg)
+    if rounds is None:
         return grads
-    return tree_map(
-        lambda g: g.to(torch.bfloat16) if g.numel() >= (1 << 20) else g, grads
-    )
+    return tree_map(lambda g: g.to(torch.bfloat16) if rounds(g) else g, grads)
 
 
-def _first_leaf(tree):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree
-
-
-def apply_optimizer(optimizer, cfg: TrainConfig, grads, opt_state, params):
-    """New ``(params, opt_state)``: ``params + updates`` in each leaf's
-    dtype, or, with ``pallas_adam`` under the JAX package's conditions (no
-    schedule, no lazy decoder Adam, a ``{"m", "v", "t"}`` state, and CUDA
-    parameters in place of a TPU), ``ops/optim.fused_adam_apply``, which
-    updates its kernel's leaves in place."""
-    if (
-        cfg.pallas_adam
-        and _lr_schedule_fn(cfg) is None
-        and not cfg.lazy_decoder_adam
-        and isinstance(opt_state, dict)
-        and {"m", "v", "t"} <= set(opt_state)
-        and _first_leaf(params).is_cuda
-    ):
-        return fused_adam_apply(
-            grads, opt_state, params, cfg.learning_rate,
-            b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS,
-        )
-    updates, opt_state = optimizer.update(grads, opt_state)
-    params = tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
-    return params, opt_state
+def apply_optimizer(optimizer, cfg: TrainConfig, grads, opt_state, params, cast: bool = False):
+    """New ``(params, opt_state)``: the optimizer's ``apply``, the
+    multi-tensor one-pass kernel K7 on CUDA (new tensors), for the fused
+    Adam's leaves and the lazy decoder Adam's encoder leaves alike.
+    ``cast``: the gradients still take ``grad_dtype``'s rounding, which
+    the kernel does as it reads them (the single-device steps pass their
+    raw gradients, the mesh steps cast none).  With ``pallas_adam`` under
+    the JAX package's conditions (no schedule, no lazy decoder Adam) the
+    leaves of its gate (``ops/optim.pallas_gate``) are updated in place
+    in the same launch."""
+    round_grad = grad_rounding(cfg) if cast else None
+    in_place = None
+    if cfg.pallas_adam and _lr_schedule_fn(cfg) is None and not cfg.lazy_decoder_adam:
+        in_place = pallas_gate(round_grad=round_grad)
+    return optimizer.apply(grads, opt_state, params, round_grad, in_place)
 
 
 # ---- per-step generators ---------------------------------------------
@@ -366,13 +378,13 @@ def value_and_grad(loss_fn: Callable, params, *args, marks=None, **kwargs):
 
 
 def _update(cfg, optimizer, loss_fn, params, opt_state, *args, **kwargs):
-    """One optimization step: gradients of ``loss_fn``, the gradient
-    cast, the optimizer.  Returns ``(params, opt_state, loss)``."""
+    """One optimization step: gradients of ``loss_fn``, then the
+    optimizer with the gradient cast.  Returns ``(params, opt_state,
+    loss)``."""
     marks = kwargs.get("marks")
     loss, grads = value_and_grad(loss_fn, params, *args, **kwargs)
-    grads = cast_grads(cfg, grads)
     with torch.no_grad():
-        params, opt_state = apply_optimizer(optimizer, cfg, grads, opt_state, params)
+        params, opt_state = apply_optimizer(optimizer, cfg, grads, opt_state, params, cast=True)
     if marks is not None:
         marks("update")
     return params, opt_state, loss

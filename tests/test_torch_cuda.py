@@ -47,6 +47,7 @@ from decagon_tpu_torch.ops.spmm_paired import (
     paired_ref,
     paired_ref_ds,
 )
+from decagon_tpu_torch.ops import optim
 from decagon_tpu_torch.ops.optim import adam_onepass, adam_onepass_ref
 from decagon_tpu_torch.ops.sddmm_pallas import sddmm_edges, sddmm_plain
 from decagon_tpu_torch.ops.spmm_pallas import (
@@ -465,6 +466,189 @@ def test_adam_kernel_rejects_what_it_does_not_take(cuda_device):
         adam_onepass(g[::2], m[::2], v[::2], p[::2], **ADAM)
     with pytest.raises(ValueError):
         adam_onepass(g[:32], m, v, p, **ADAM)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+# Leaves of a tree shaped like the main path's, each (shape, g dtype,
+# moments dtype, rounded, offset, transposed g): a 4-D paired leaf, 3-D
+# and 2-D leaves, all four g x moment pairs, f32 gradients rounded to bf16
+# in the kernel, views off 16-byte alignment, lengths that are not
+# multiples of 8, a non-contiguous gradient, one element, no element.
+MIXED = {
+    "enc1": {"1,1": ((2, 7, 16, 45), F32, BF16, True, 0, False),
+             "0,0": ((2, 1, 16, 301), BF16, BF16, False, 0, False),
+             "1,0": ((1, 301, 16), F32, BF16, False, 3, False)},
+    "enc2": {"1,1": ((2, 7, 8, 16), F32, F32, False, 0, True),
+             "0,1": ((1, 45, 8), BF16, F32, False, 1, False)},
+    "dec": {"global": ((8, 8), F32, BF16, False, 0, False),
+            "one": ((1,), F32, F32, False, 0, False),
+            "empty": ((0, 8), F32, BF16, False, 0, False)},
+}
+
+
+def _adam_tree(spec, device, seed=0):
+    """``(grads, state, params, rounded)`` for ``spec``: seeded normals,
+    ``v`` positive, each tensor a view ``offset`` elements into its own
+    storage; ``rounded`` lists the rounded leaves' gradients (by id)."""
+    gen = torch.Generator().manual_seed(seed)
+    rounded = set()
+
+    def draw(shape, dtype, offset, scale=1.0, positive=False):
+        n = int(np.prod(shape))
+        x = scale * torch.randn(n + offset, generator=gen)
+        x = x.abs() if positive else x
+        return x.to(dtype).to(device)[offset:].view(shape)
+
+    def leaf(shape, gdt, mdt, rounds, offset, transposed):
+        g = draw(shape[::-1] if transposed else shape, gdt, offset)
+        g = g.permute(*reversed(range(len(shape)))) if transposed else g
+        if rounds:
+            rounded.add(id(g))
+        return (g, draw(shape, mdt, offset, 0.1), draw(shape, mdt, offset, 0.01, True),
+                draw(shape, F32, offset))
+
+    leaves = optim.tree_map(lambda s: leaf(*s), spec)
+    grads, m, v, params = (optim.tree_map(lambda x, i=i: x[i], leaves) for i in range(4))
+    return grads, {"m": m, "v": v, "t": 2}, params, lambda g: id(g) in rounded
+
+
+def _flat_tensors(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for key in tree:
+            out.update(_flat_tensors(tree[key], f"{prefix}/{key}"))
+        return out
+    return {prefix: tree}
+
+
+def _hold_adam_trees(got, want):
+    """Parameters and moments bitwise equal, dtype for dtype."""
+    (gp, gs), (wp, ws) = got, want
+    assert gs["t"] == ws["t"]
+    for kind, a, b in (("p", gp, wp), ("m", gs["m"], ws["m"]), ("v", gs["v"], ws["v"])):
+        fa, fb = _flat_tensors(a), _flat_tensors(b)
+        assert sorted(fa) == sorted(fb)
+        for name in fb:
+            assert fa[name].dtype == fb[name].dtype, (kind, name)
+            assert fa[name].is_contiguous(), (kind, name)
+            assert torch.equal(fa[name], fb[name]), (kind, name)
+
+
+def _copy_tree(tree):
+    if isinstance(tree, dict):
+        return {key: _copy_tree(value) for key, value in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+ADAM_TREE = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+
+
+def test_adam_apply_matches_plain_bitwise_on_a_mixed_tree(cuda_device):
+    """The main path's kinds of leaf in one tree: one launch, bitwise equal
+    to ``adam_apply_ref``, out of place (the inputs keep their values)."""
+    grads, state, params, rounds = _adam_tree(MIXED, cuda_device)
+    before = [_copy_tree(x) for x in (grads, state, params)]
+    launches = cuda_build.LAUNCHES["adam"]
+    got = optim.adam_apply(grads, state, params, **ADAM_TREE, round_grad=rounds)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["adam"] == launches + 1
+    want = optim.adam_apply_ref(grads, state, params, **ADAM_TREE, round_grad=rounds)
+    _hold_adam_trees(got, want)
+    assert got[1]["t"] == 3
+    for old, now in zip(before, (grads, state, params)):
+        fo, fn = _flat_tensors(old), _flat_tensors(now)
+        assert all(torch.equal(fo[k], fn[k]) if isinstance(fn[k], torch.Tensor)
+                   else fo[k] == fn[k] for k in fn)
+    assert got[0]["dec"]["global"].data_ptr() != params["dec"]["global"].data_ptr()
+
+
+def test_adam_apply_in_place(cuda_device):
+    """``in_place``: the leaves it picks are updated in their own tensors
+    (the returned trees hold them), the others into new ones; the values
+    equal the plain version's either way."""
+    grads, state, params, rounds = _adam_tree(MIXED, cuda_device, seed=1)
+    want = optim.adam_apply_ref(grads, state, params, **ADAM_TREE, round_grad=rounds)
+    ptrs = {k: x.data_ptr() for k, x in _flat_tensors(params).items()}
+    pick = lambda g, m, v, p: p.dim() >= 3  # noqa: E731
+    got = optim.adam_apply(grads, state, params, **ADAM_TREE, round_grad=rounds, in_place=pick)
+    torch.cuda.synchronize()
+    _hold_adam_trees(got, want)
+    for name, x in _flat_tensors(got[0]).items():
+        if x.numel():
+            assert (x.data_ptr() == ptrs[name]) == (x.dim() >= 3), name
+    assert got[1]["m"]["enc1"]["1,1"] is state["m"]["enc1"]["1,1"]
+
+
+def test_adam_apply_takes_several_launches_past_max_leaves(cuda_device):
+    """More leaves than a launch's table: one launch a ``MAX_LEAVES``."""
+    n = 2 * optim.MAX_LEAVES + 5
+    spec = {str(i): ((1 + 37 * i,), (F32, BF16)[i % 2], (BF16, F32)[i % 3 == 0], False, i % 4,
+                     False) for i in range(n)}
+    grads, state, params, _ = _adam_tree(spec, cuda_device, seed=2)
+    launches = cuda_build.LAUNCHES["adam"]
+    got = optim.adam_apply(grads, state, params, **ADAM_TREE)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["adam"] == launches + 3
+    _hold_adam_trees(got, optim.adam_apply_ref(grads, state, params, **ADAM_TREE))
+
+
+def test_adam_apply_rejects_what_it_does_not_take(cuda_device):
+    """Non-contiguous m, v or p, unknown dtypes and parameters that are
+    not f32 (the dtype gate) raise, with no launch."""
+    g, m, v, p = _adam_world(64, F32, cuda_device)
+    tree = lambda x: {"a": x}  # noqa: E731
+    state = lambda mm, vv: {"m": tree(mm), "v": tree(vv), "t": 0}  # noqa: E731
+    g2, m2, v2, p2 = (x.view(8, 8) for x in (g, m, v, p))
+    with pytest.raises(ValueError):
+        optim.adam_apply(tree(g2.t()), state(m2.t(), v2.t()), tree(p2.t()), **ADAM_TREE)
+    with pytest.raises(ValueError):
+        optim.adam_apply(tree(g2), state(m2, v2), tree(p2.t()), **ADAM_TREE)
+    with pytest.raises(TypeError):
+        optim.adam_apply(tree(g.half()), state(m, v), tree(p), **ADAM_TREE)
+    with pytest.raises(TypeError):
+        optim.adam_apply(tree(g), state(m.to(BF16), v), tree(p), **ADAM_TREE)
+    with pytest.raises(ValueError):
+        optim.adam_apply(tree(g[:32]), state(m, v), tree(p), **ADAM_TREE)
+    launches = cuda_build.LAUNCHES["adam"]
+    dt = torch.float64
+    with pytest.raises(TypeError):
+        optim.adam_apply(tree(g.to(dt)), state(m.to(dt), v.to(dt)), tree(p.to(dt)), **ADAM_TREE)
+    with pytest.raises(TypeError):
+        optim.adam_apply(tree(g), state(m, v), tree(p.to(BF16)), **ADAM_TREE)
+    assert cuda_build.LAUNCHES["adam"] == launches
+
+
+def test_apply_optimizer_takes_one_launch_a_step(cuda_device):
+    """The default ``TrainConfig``'s optimizer on CUDA: one launch a step
+    (the gradient cast inside it), three steps bitwise equal to the same
+    steps through ``make_optimizer(one_pass=adam_apply_ref)``; with a
+    schedule, and with ``lazy_decoder_adam`` (its encoder's leaves in the
+    launch), as well."""
+    from decagon_tpu_torch.train import step as step_mod
+
+    big = {"a": ((2, 5, 16, 7000), F32, F32, False, 0, False)}
+    spec = dict(MIXED, big=big)
+    for kw in ({}, dict(lr_schedule="cosine", lr_schedule_steps=4),
+               dict(lazy_decoder_adam=True)):
+        cfg = step_mod.TrainConfig(**kw)
+        out = []
+        for one_pass in (None, optim.adam_apply_ref):
+            opt = step_mod.make_optimizer(cfg, one_pass=one_pass)
+            grads, _, params, _ = _adam_tree(spec, cuda_device, seed=3)
+            state = opt.init(params)
+            launches = cuda_build.LAUNCHES["adam"]
+            for _ in range(3):
+                params, state = step_mod.apply_optimizer(opt, cfg, grads, state, params,
+                                                         cast=True)
+            torch.cuda.synchronize()
+            out.append((params, state, cuda_build.LAUNCHES["adam"] - launches))
+        assert out[0][2] == 3 and out[1][2] == 0
+        if cfg.lazy_decoder_adam:
+            out = [(p, {"m": {**s["enc"]["m"], **s["dec"]["m"]},
+                        "v": {**s["enc"]["v"], **s["dec"]["v"]}, "t": s["enc"]["t"]}, n)
+                   for p, s, n in out]
+        assert out[0][1]["m"]["big"]["a"].dtype == BF16
+        _hold_adam_trees(out[0][:2], out[1][:2])
 
 
 def _csr_world(n_src, n_dst, e, h, device, seed=0, long_row=0):
