@@ -115,9 +115,11 @@ Phases, each announced with the seconds elapsed since start:
    counters set to 0, CUDA-event times of each kernel, its plain version
    and, for P5, ``torch.sum``, with bounds; K1's phase-4 time (the sweep
    design) is printed beside P3's parts (the former WMMA design, at the
-   relations a block that design took).  P6's launches are those of its
-   timing in phase 11.  P1's and P4's library call is ``torch.bmm``, one a
-   half, at their shape;
+   relations a block that design took).  P1 and P4 run the paired sweep
+   (P1 at the schedule's cut and at one relation a block); P2 and P3 the
+   former WMMA design.  P6's launches are those of its timing in phase 11.
+   P1's and P4's library call is ``torch.bmm``, one a half, at their
+   shape;
 19. framework shell: ``python -m decagon_tpu_torch.cli`` as a user runs it,
    in-process on the card: a config file for the dummy dataset (500
    proteins, 400 drugs, 3 side effects) at full width (hidden 64 -> 32,
@@ -2069,9 +2071,9 @@ PROBES = (
      "scripts/probe_paired_parts.py:36"),
     ("probe_paired_orient", "decagon_tpu_torch/csrc/probe_paired.cu",
      "scripts/probe_paired_orient.py:23"),
-    ("probe_paired_bwd_idioms", "decagon_tpu_torch/csrc/probe_paired.cu",
+    ("probe_paired_bwd_idioms", "decagon_tpu_torch/csrc/paired_bwd.cu",
      "scripts/probe_paired_bwd_idioms.py:16"),
-    ("probe_paired_idioms", "decagon_tpu_torch/csrc/probe_paired.cu",
+    ("probe_paired_idioms", "decagon_tpu_torch/csrc/paired_fwd.cu",
      "scripts/probe_paired_idioms.py:23"),
 )
 PROBE_REPS = 3
@@ -2087,7 +2089,8 @@ def probes(device, seed, paired_rows):
     kernel, plain version, ``torch.sum`` for P5), read just after.
     Returns the launch counts, each probe's rows, and the case that heads
     each probe's kernel entry (the int8 read at kb 2 beside ``torch.sum``,
-    K1's work at kb 4, the TPU probes' K = 963 shapes)."""
+    K1's work at kb 4, the TPU probes' K = 963 shapes, P1 at the
+    schedule's cut)."""
     import torch
 
     from decagon_tpu_torch.ops import cuda_build
@@ -2126,7 +2129,7 @@ def probes(device, seed, paired_rows):
         "probe_paired_bwd_idioms": [p4b.variant(*on), p4b.variant(*full4)],
         "probe_paired_idioms": [p1.variant(*aug4, h=p1.H),
                                 p1.variant(m963, pe_aug, po_aug, h=p1.H, kb=1),
-                                p1.variant(m963, pe_aug, po_aug, h=p1.H, kb=k1)],
+                                p1.variant(m963, pe_aug, po_aug, h=p1.H)],
     }
     de, do = p4b.paired_bwd(*on)
     err4 = p4b.oracle_error(small4[0], small4[1], small4[2], de.float().cpu().numpy(),
@@ -2150,7 +2153,7 @@ def probes(device, seed, paired_rows):
     heads = {"probe_int8_bw": "sum_int8_kb2", "probe_paired_parts": "two_dots_kb4",
              "probe_paired_orient": "both_i8_kb4",
              "probe_paired_bwd_idioms": f"paired_bwd_K{p4b.K_FULL}",
-             "probe_paired_idioms": f"paired_K{p1.K_FULL}_kb1"}
+             "probe_paired_idioms": f"paired_K{p1.K_FULL}_sched"}
     # P1's and P4's library call: K1's and K3's yardstick, one torch.bmm a
     # half, at their shape (K = 963, N = 645, H = 64, bf16 operands).
     q = torch.randn((2, p1.K_FULL, p1.H, p1.N), generator=g, device=device).to(torch.bfloat16)
@@ -2167,8 +2170,11 @@ def probes(device, seed, paired_rows):
         "relations a block, bf16 operands, no scales: "
         + ", ".join(f"{m} {parts[f'{m}_kb{k1}']:.3f}" for m in p3.MODES)
         + f" ms; P5 int8 read: {rows['probe_int8_bw'][0]['ms']:.3f} ms")
-    log(f"probe launches {json.dumps({n: counts[n] for n in groups})}; two torch.bmm at "
-        f"P1's and P4's shape {bmm_ms:.3f} ms; max memory allocated "
+    p1_ms = {r["case"]: r["ms"] for r in rows["probe_paired_idioms"]}
+    log(f"P1 on the sweep: {json.dumps(p1_ms)}; P4 on K3's sweep: "
+        f"{rows['probe_paired_bwd_idioms'][-1]['ms']:.3f} ms; two torch.bmm at P1's and P4's "
+        f"shape {bmm_ms:.3f} ms")
+    log(f"probe launches {json.dumps({n: counts[n] for n in groups})}; max memory allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return counts, rows, heads
 

@@ -38,6 +38,12 @@
 // 3. With the contraction split, blocks store unscaled f32 partials
 //    instead, and a last pass sums them in a fixed order, applies s and
 //    casts.
+//
+// The probe P4 (``dt_paired_bwd_unscaled``; it replaces the TPU probe
+// scripts/probe_paired_bwd_idioms.py::kernel) is this kernel with s = 1
+// and bf16 d: the operand pass reads the row scales from sc [K, 2, N]
+// (a_e, a_o) and the epilogue and the last pass apply no column scale, so
+// d[0] = bf16(bf16(a_e ct) B) and d[1] = bf16(bf16(a_o ct) B^T).
 
 #include "paired_core.cuh"
 
@@ -51,7 +57,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 }
 
 // q[t][k][h][x] = bf16(scales[k,t,x] * ct[h,x]) for h < H and x < N, else
-// 0.  Grid: x walks the 2 K Hq rows, y the row's groups of eight columns.
+// 0, with scales [K, SROWS, N] (K3's 4 rows, P4's 2).  Grid: x walks the
+// 2 K Hq rows, y the row's groups of eight columns.
+template <int SROWS>
 __global__ void bwd_operands_kernel(const float* __restrict__ ct,
                                     const float* __restrict__ scales,
                                     __nv_bfloat16* __restrict__ q, int K, int N, int H, int Hq,
@@ -60,7 +68,7 @@ __global__ void bwd_operands_kernel(const float* __restrict__ ct,
   const int h = row % Hq, tk = row / Hq, k = tk % K, t = tk / K;
   const int j0 = 8 * (blockIdx.y * blockDim.x + threadIdx.x);
   if (j0 >= Npad) return;
-  const float* a = scales + (static_cast<size_t>(k) * 4 + t) * N;
+  const float* a = scales + (static_cast<size_t>(k) * SROWS + t) * N;
   const float* g = ct + static_cast<size_t>(h) * N;
   __align__(16) __nv_bfloat16 v[8];
 #pragma unroll
@@ -73,9 +81,10 @@ __global__ void bwd_operands_kernel(const float* __restrict__ ct,
 }
 
 // Per relation: the direct half (half 0) holds d[1]'s piece, the
-// transposed half d[0]'s.  Stored finished (s applied, cast) or, with the
-// contraction split, as this split's f32 partial [2][K][H][N].
-template <typename O>
+// transposed half d[0]'s.  Stored finished (s applied unless !SCALED,
+// cast) or, with the contraction split, as this split's f32 partial
+// [2][K][H][N].
+template <typename O, bool SCALED>
 struct BwdEpilogue {
   const float* scales;
   const float* ds;
@@ -98,14 +107,16 @@ struct BwdEpilogue {
         }
       return;
     }
-    float s[2];
+    float s[2] = {1.f, 1.f};
+    if constexpr (SCALED) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int nn = n + 8 * e;
-      s[e] = 0.f;
-      if (nn < N) {
-        s[e] = scales[(static_cast<size_t>(k) * 4 + 2 + t) * N + nn];
-        if (ds != nullptr) s[e] *= ds[(static_cast<size_t>(k) * 2 + t) * N + nn];
+      for (int e = 0; e < 2; ++e) {
+        const int nn = n + 8 * e;
+        s[e] = 0.f;
+        if (nn < N) {
+          s[e] = scales[(static_cast<size_t>(k) * 4 + 2 + t) * N + nn];
+          if (ds != nullptr) s[e] *= ds[(static_cast<size_t>(k) * 2 + t) * N + nn];
+        }
       }
     }
 #pragma unroll
@@ -118,7 +129,7 @@ struct BwdEpilogue {
   }
 };
 
-template <typename O>
+template <typename O, bool SCALED>
 __global__ void __launch_bounds__(THREADS, 2)
 paired_bwd_kernel(const int8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ q,
                   const float* __restrict__ scales, const float* __restrict__ ds,
@@ -130,12 +141,13 @@ paired_bwd_kernel(const int8_t* __restrict__ mask, const __nv_bfloat16* __restri
   float* part = nullptr;
   if (con_splits > 1)
     part = partial + static_cast<size_t>(blockIdx.y % con_splits) * 2 * K * H * N;
-  BwdEpilogue<O> epi{scales, ds, d, part, K, N, H, s.n0, s.h0};
+  BwdEpilogue<O, SCALED> epi{scales, ds, d, part, K, N, H, s.n0, s.h0};
   sweep(s, epi, smem);
 }
 
-// d[x] = s(x) * sum over splits of partial[c, x], in split order, cast.
-template <typename O>
+// d[x] = s(x) * sum over splits of partial[c, x], in split order, cast
+// (s = 1 unless SCALED).
+template <typename O, bool SCALED>
 __global__ void bwd_reduce_kernel(const float* __restrict__ partial,
                                   const float* __restrict__ scales,
                                   const float* __restrict__ ds, O* __restrict__ d, int splits,
@@ -143,35 +155,46 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ partial,
   const size_t count = 2ull * K * H * N;
   for (size_t x = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; x < count;
        x += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int n = static_cast<int>(x % N);
-    const size_t tk = x / (static_cast<size_t>(H) * N);
-    const int k = static_cast<int>(tk % K), t = static_cast<int>(tk / K);
     float acc = 0.f;
     for (int c = 0; c < splits; ++c) acc += partial[c * count + x];
-    float sc = scales[(static_cast<size_t>(k) * 4 + 2 + t) * N + n];
-    if (ds != nullptr) sc *= ds[(static_cast<size_t>(k) * 2 + t) * N + n];
-    store(d + x, sc * acc);
+    if constexpr (SCALED) {
+      const int n = static_cast<int>(x % N);
+      const size_t tk = x / (static_cast<size_t>(H) * N);
+      const int k = static_cast<int>(tk % K), t = static_cast<int>(tk / K);
+      float sc = scales[(static_cast<size_t>(k) * 4 + 2 + t) * N + n];
+      if (ds != nullptr) sc *= ds[(static_cast<size_t>(k) * 2 + t) * N + n];
+      acc *= sc;
+    }
+    store(d + x, acc);
   }
 }
 
-template <typename O>
+template <typename O, bool SCALED = true>
 cudaError_t launch(const void* mask, const __nv_bfloat16* q, const float* scales,
                    const float* ds, void* d, float* partial, int K, int N, int H, int Hq,
                    int rel_splits, int con_splits, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      paired_bwd_kernel<O>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      paired_bwd_kernel<O, SCALED>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TM - 1) / TM, rel_splits * con_splits, (H + HS - 1) / HS);
-  paired_bwd_kernel<O><<<grid, THREADS, SMEM_BYTES, stream>>>(
+  paired_bwd_kernel<O, SCALED><<<grid, THREADS, SMEM_BYTES, stream>>>(
       static_cast<const int8_t*>(mask), q, scales, ds, static_cast<O*>(d), partial, K, N, H,
       Hq, rel_splits, con_splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || con_splits == 1) return err;
   const size_t count = 2ull * K * H * N;
   const int blocks = static_cast<int>((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
-  bwd_reduce_kernel<O><<<blocks, 256, 0, stream>>>(partial, scales, ds, static_cast<O*>(d),
-                                                   con_splits, K, N, H);
+  bwd_reduce_kernel<O, SCALED><<<blocks, 256, 0, stream>>>(
+      partial, scales, ds, static_cast<O*>(d), con_splits, K, N, H);
   return cudaGetLastError();
+}
+
+bool valid_call(int K, int N, int H, int rel_splits, int con_splits) {
+  const int chunks = (N + TK - 1) / TK;
+  return K >= 1 && N >= 1 && H >= 1 && rel_splits >= 1 && rel_splits <= K &&
+         con_splits >= 1 && con_splits <= chunks &&
+         static_cast<long long>(rel_splits) * con_splits <= 65535 &&
+         (H + HS - 1) / HS <= 65535 && 2LL * K * ((H + 15) / 16 * 16) <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -187,18 +210,14 @@ int dt_paired_bwd(const void* mask, const void* ct, const void* scales, const vo
                   void* q, void* partial, void* d, int out_bf16, int K, int N, int H,
                   int rel_splits, int con_splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Hq = (H + 15) / 16 * 16, chunks = (N + TK - 1) / TK, Npad = chunks * TK;
-  const long long rows = 2LL * K * Hq;
-  if (K < 1 || N < 1 || H < 1 || rel_splits < 1 || rel_splits > K || con_splits < 1 ||
-      con_splits > chunks || static_cast<long long>(rel_splits) * con_splits > 65535 ||
-      (H + HS - 1) / HS > 65535 || rows > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
+  const int Hq = (H + 15) / 16 * 16, Npad = (N + TK - 1) / TK * TK;
+  if (!valid_call(K, N, H, rel_splits, con_splits)) return cudaErrorInvalidValue;
   __nv_bfloat16* qb = static_cast<__nv_bfloat16*>(q);
   const float* sc = static_cast<const float*>(scales);
   const float* dsf = static_cast<const float*>(ds);
-  const dim3 pass(static_cast<unsigned>(rows), (Npad / 8 + 127) / 128);
-  bwd_operands_kernel<<<pass, 128, 0, st>>>(static_cast<const float*>(ct), sc, qb, K, N, H,
-                                            Hq, Npad);
+  const dim3 pass(static_cast<unsigned>(2 * K * Hq), (Npad / 8 + 127) / 128);
+  bwd_operands_kernel<4><<<pass, 128, 0, st>>>(static_cast<const float*>(ct), sc, qb, K, N, H,
+                                               Hq, Npad);
   float* part = static_cast<float*>(partial);
   return out_bf16 ? launch<__nv_bfloat16>(mask, qb, sc, dsf, d, part, K, N, H, Hq,
                                           rel_splits, con_splits, st)
@@ -206,17 +225,36 @@ int dt_paired_bwd(const void* mask, const void* ct, const void* scales, const vo
                                   con_splits, st);
 }
 
+// P4.  mask int8 [K, N, N]; ct f32 [H, N]; sc f32 [K, 2, N] (a_e, a_o);
+// q and partial scratch as dt_paired_bwd's; d bf16 [2, K, H, N]: d[0] the
+// probe's de, d[1] its do.
+int dt_paired_bwd_unscaled(const void* mask, const void* ct, const void* sc, void* q,
+                           void* partial, void* d, int K, int N, int H, int rel_splits,
+                           int con_splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Hq = (H + 15) / 16 * 16, Npad = (N + TK - 1) / TK * TK;
+  if (!valid_call(K, N, H, rel_splits, con_splits)) return cudaErrorInvalidValue;
+  __nv_bfloat16* qb = static_cast<__nv_bfloat16*>(q);
+  const dim3 pass(static_cast<unsigned>(2 * K * Hq), (Npad / 8 + 127) / 128);
+  bwd_operands_kernel<2><<<pass, 128, 0, st>>>(static_cast<const float*>(ct),
+                                               static_cast<const float*>(sc), qb, K, N, H, Hq,
+                                               Npad);
+  return launch<__nv_bfloat16, false>(mask, qb, nullptr, nullptr, d,
+                                      static_cast<float*>(partial), K, N, H, Hq, rel_splits,
+                                      con_splits, st);
+}
+
 // The sweep kernel's registers, blocks an SM, shared and local bytes, as
 // dt_paired_fwd_info (the f32-output instantiation).
 int dt_paired_bwd_info(int* info) {
-  cudaError_t err = cudaFuncSetAttribute(
-      paired_bwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  constexpr auto kernel = paired_bwd_kernel<float, true>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, paired_bwd_kernel<float>);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], paired_bwd_kernel<float>,
-                                                      THREADS, SMEM_BYTES);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], kernel, THREADS, SMEM_BYTES);
   info[0] = attr.numRegs;
   info[2] = SMEM_BYTES;
   info[3] = static_cast<int>(attr.localSizeBytes);

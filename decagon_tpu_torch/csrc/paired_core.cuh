@@ -43,6 +43,14 @@
 // lane / 4, columns 2 (lane % 4) + {0, 1}; c2, c3: eight rows down), so
 // the epilogue applies per-node scales in registers.
 //
+// Operand layouts.  PLANES (K1-K4): the operand pass's planes above.
+// NODE_MAJOR (the probe P1, paired_fwd.cu's dt_paired_fwd_aug): bf16 rows
+// [K][N][ld], one a contraction index with the hidden columns contiguous,
+// read as they lie: each tile row is eight 16-byte chunks of one row
+// (16-byte aligned when the base is and ld is a multiple of eight), rows
+// past N zero-filled, into a swizzled tile [64 c][64 h] whose B fragments
+// come with ldmatrix.trans.
+//
 // Sums are f32 in a fixed order (chunk by chunk, relation by relation),
 // and a block owns its outputs, so two calls give equal bits.
 
@@ -66,6 +74,8 @@ constexpr int TILE_BYTES = 64 * 64 * 2;  // a bf16 64 x 64 tile, 128-byte rows
 constexpr int STAGE_BYTES = 2 * RAW_BYTES + 2 * TILE_BYTES;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * TILE_BYTES;
 
+enum class Operands { PLANES, NODE_MAJOR };
+
 // One block's work, decoded from the grid: blockIdx.x the node tile,
 // blockIdx.y = relation split * con_splits + contraction split (also the
 // index of the block's partial), blockIdx.z the hidden slice.  The ranges
@@ -74,9 +84,11 @@ struct Sweep {
   const int8_t* mask;               // [K, N, N]
   const unsigned char* begin;       // the mask's first byte
   const unsigned char* end;         // one past its last
-  const __nv_bfloat16* qd;          // direct tile's operand planes [K][Hq][Npad]
+  const __nv_bfloat16* qd;          // direct tile's operands: planes [K][Hq][Npad]
+                                    // (NODE_MAJOR: rows [K][N][ld])
   const __nv_bfloat16* qt;          // transposed tile's
   int N, Hq, Npad;
+  int ld;                           // NODE_MAJOR: elements a row (set by the caller)
   int n0, h0, nh;                   // first node, first column, 16-column groups
   int k0, k1, ch0, ch1;             // relations and chunks of this block
 };
@@ -96,6 +108,7 @@ __device__ __forceinline__ Sweep block_sweep(const int8_t* mask, int K, int N, i
   s.N = N;
   s.Hq = Hq;
   s.Npad = chunks * TK;
+  s.ld = 0;
   s.n0 = blockIdx.x * TM;
   s.h0 = blockIdx.z * HS;
   s.nh = (Hq - s.h0) / 16 < 4 ? (Hq - s.h0) / 16 : 4;
@@ -172,7 +185,9 @@ __device__ __forceinline__ void stage_chunk(unsigned char* dst, const Sweep& s,
 
 // Start the copies of flattened step ``it`` (relation k0 + it / nc, chunk
 // ch0 + it % nc) into stage ``st``: [raw direct][raw transposed][qd][qt],
-// the operand tiles straight from the operand pass's planes.
+// the operand tiles straight from the planes ([h][c]) or the node-major
+// rows ([c][h]).
+template <Operands OP = Operands::PLANES>
 __device__ __forceinline__ void stage(const Sweep& s, int it, unsigned char* st, int tid) {
   const int nc = s.ch1 - s.ch0;
   const int k = s.k0 + it / nc;
@@ -185,13 +200,28 @@ __device__ __forceinline__ void stage(const Sweep& s, int it, unsigned char* st,
   }
   unsigned char* td = st + 2 * RAW_BYTES;
   unsigned char* tt = td + TILE_BYTES;
-  const int per = s.nh * 16 * 8;  // 16-byte chunks of one operand tile
-  const size_t plane = (static_cast<size_t>(k) * s.Hq + s.h0) * s.Npad + c0;
-  for (int idx = tid; idx < per; idx += THREADS) {
-    const int h = idx >> 3, q = idx & 7;
-    const size_t off = plane + static_cast<size_t>(h) * s.Npad + 8 * q;
-    cp_async16(td + swz(h, q), s.qd + off);
-    cp_async16(tt + swz(h, q), s.qt + off);
+  if constexpr (OP == Operands::PLANES) {
+    const int per = s.nh * 16 * 8;  // 16-byte chunks of one operand tile
+    const size_t plane = (static_cast<size_t>(k) * s.Hq + s.h0) * s.Npad + c0;
+    for (int idx = tid; idx < per; idx += THREADS) {
+      const int h = idx >> 3, q = idx & 7;
+      const size_t off = plane + static_cast<size_t>(h) * s.Npad + 8 * q;
+      cp_async16(td + swz(h, q), s.qd + off);
+      cp_async16(tt + swz(h, q), s.qt + off);
+    }
+  } else {
+    for (int idx = tid; idx < TK * 8; idx += THREADS) {
+      const int c = idx >> 3, q = idx & 7;
+      if (q >= 2 * s.nh) continue;
+      if (c0 + c < s.N) {
+        const size_t off = (static_cast<size_t>(k) * s.N + c0 + c) * s.ld + s.h0 + 8 * q;
+        cp_async16(td + swz(c, q), s.qd + off);
+        cp_async16(tt + swz(c, q), s.qt + off);
+      } else {
+        cp_async16(td + swz(c, q), s.qd, 0);
+        cp_async16(tt + swz(c, q), s.qt, 0);
+      }
+    }
   }
 }
 
@@ -262,6 +292,7 @@ __device__ __forceinline__ void convert(const Sweep& s, const int8_t* bk, int c0
 
 // acc[j] (columns 8j..8j+7 of the slice) += this chunk's product for the
 // warp's 16 nodes.
+template <Operands OP = Operands::PLANES>
 __device__ __forceinline__ void products(const unsigned char* tile, const unsigned char* opnd,
                                          float (&acc)[8][4], int half, int rg, int lane,
                                          int nh) {
@@ -280,8 +311,12 @@ __device__ __forceinline__ void products(const unsigned char* tile, const unsign
     for (int hp = 0; hp < HS / 16; ++hp) {
       if (hp < nh) {
         uint32_t b[4];
-        const int r = 16 * hp + (lane & 7) + ((lane >> 4) << 3);
-        ldmatrix_x4(b, o + swz(r, 2 * kk + ((lane >> 3) & 1)));
+        if constexpr (OP == Operands::PLANES) {
+          const int r = 16 * hp + (lane & 7) + ((lane >> 4) << 3);
+          ldmatrix_x4(b, o + swz(r, 2 * kk + ((lane >> 3) & 1)));
+        } else {
+          ldmatrix_x4_trans(b, o + swz(16 * kk + (lane & 15), 2 * hp + (lane >> 4)));
+        }
         mma_bf16(acc[2 * hp], a, b[0], b[1]);
         mma_bf16(acc[2 * hp + 1], a, b[2], b[3]);
       }
@@ -294,7 +329,7 @@ __device__ __forceinline__ void products(const unsigned char* tile, const unsign
 // half 1: acc_T), which are zeroed after.  On return every copy has
 // landed and every thread has passed a barrier, so the caller may reuse
 // the shared memory.
-template <class Epi>
+template <Operands OP = Operands::PLANES, class Epi>
 __device__ __forceinline__ void sweep(const Sweep& s, Epi& epi, unsigned char* smem) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int half = warp >> 2, rg = warp & 3;
@@ -309,7 +344,7 @@ __device__ __forceinline__ void sweep(const Sweep& s, Epi& epi, unsigned char* s
 
 #pragma unroll
   for (int it = 0; it < STAGES - 1; ++it) {
-    if (it < steps) stage(s, it, smem + it * STAGE_BYTES, tid);
+    if (it < steps) stage<OP>(s, it, smem + it * STAGE_BYTES, tid);
     cp_async_commit();
   }
   int k = s.k0, ci = 0;  // relation and chunk (within the block's range) of step it
@@ -317,13 +352,13 @@ __device__ __forceinline__ void sweep(const Sweep& s, Epi& epi, unsigned char* s
     cp_async_wait<STAGES - 2>();  // this thread's copies of step it have landed
     __syncthreads();              // everyone's; and step it - 1 is consumed
     const int nx = it + STAGES - 1;
-    if (nx < steps) stage(s, nx, smem + (nx % STAGES) * STAGE_BYTES, tid);
+    if (nx < steps) stage<OP>(s, nx, smem + (nx % STAGES) * STAGE_BYTES, tid);
     cp_async_commit();
     const unsigned char* st = smem + (it % STAGES) * STAGE_BYTES;
     const int8_t* bk = s.mask + static_cast<size_t>(k) * s.N * s.N;
     convert(s, bk, (s.ch0 + ci) * TK, st, tile, half, rg, lane);
     __syncwarp();
-    products(tile, st + 2 * RAW_BYTES + half * TILE_BYTES, acc, half, rg, lane, s.nh);
+    products<OP>(tile, st + 2 * RAW_BYTES + half * TILE_BYTES, acc, half, rg, lane, s.nh);
     if (++ci == nc) {
       epi.relation(k, half, rg, lane, acc);
 #pragma unroll

@@ -2,8 +2,10 @@
 // which applies a_e / a_o per node in registers at each relation's end,
 // and the block's end, where the two halves' totals meet in shared memory
 // and the block writes its partial.  ``paired_fwd.cu`` instantiates it on
-// the whole sweep (``WholeSweep``); ``probe_paired_sweep.cu`` on the
-// sweep's parts.  ``paired_fwd.cu``'s header comment gives the contract.
+// the whole sweep (``WholeSweep``), and the epilogue and the block's end
+// for the probe P1 (node-major operands, bf16 row scales);
+// ``probe_paired_sweep.cu`` the kernel on the sweep's parts.
+// ``paired_fwd.cu``'s header comment gives the contracts.
 
 #pragma once
 
@@ -13,16 +15,27 @@ namespace {
 
 using namespace paired;
 
-struct FwdEpilogue {
+// K1/K2's row scales: a_e (half 0) or a_o (half 1) of node n in relation
+// k, the f32 rows 0 and 1 of scales [K, 4, N].
+struct ScaleRows {
   const float* scales;
+  int N;
+  __device__ __forceinline__ float operator()(int k, int half, int n) const {
+    return scales[(static_cast<size_t>(k) * 4 + half) * N + n];
+  }
+};
+
+template <class Scales>
+struct FwdEpilogue {
+  Scales scale;
   int N, n0;
   float total[8][4];
 
   __device__ __forceinline__ void relation(int k, int half, int rg, int lane,
                                            const float (&acc)[8][4]) {
-    const float* a = scales + (static_cast<size_t>(k) * 4 + half) * N;
     const int n = n0 + 16 * rg + (lane >> 2);
-    const float lo = n < N ? a[n] : 0.f, hi = n + 8 < N ? a[n + 8] : 0.f;
+    const float lo = n < N ? scale(k, half, n) : 0.f;
+    const float hi = n + 8 < N ? scale(k, half, n + 8) : 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       total[j][0] += lo * acc[j][0];
@@ -33,22 +46,12 @@ struct FwdEpilogue {
   }
 };
 
-template <class Sweeper>
-__global__ void __launch_bounds__(THREADS, 2)
-paired_fwd_kernel(const int8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ q,
-                  const float* __restrict__ scales, float* __restrict__ partial, int K, int N,
-                  int H, int Hq, int rel_splits, int con_splits) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const size_t half_q = static_cast<size_t>(K) * Hq * ((N + TK - 1) / TK * TK);
-  const Sweep s = block_sweep(mask, K, N, Hq, q, q + half_q, rel_splits, con_splits);
-  FwdEpilogue epi{scales, N, s.n0};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) epi.total[j][e] = 0.f;
-  Sweeper::run(s, epi, smem);
-
-  // The transposed half's totals meet the direct half's in shared memory.
+// The block's end: the transposed half's totals meet the direct half's in
+// shared memory (free once the sweep has returned), and the direct half
+// writes the block's piece of its partial dst [N, H].
+template <class Epi>
+__device__ __forceinline__ void store_partial(const Epi& epi, const Sweep& s, float* dst,
+                                              int N, int H, unsigned char* smem) {
   constexpr int LDR = HS + 4;
   float* red = reinterpret_cast<float*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -65,7 +68,6 @@ paired_fwd_kernel(const int8_t* __restrict__ mask, const __nv_bfloat16* __restri
   }
   __syncthreads();
   if (half == 1) return;
-  float* dst = partial + static_cast<size_t>(blockIdx.y) * N * H;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -76,6 +78,23 @@ paired_fwd_kernel(const int8_t* __restrict__ mask, const __nv_bfloat16* __restri
         dst[static_cast<size_t>(n) * H + h] = epi.total[j][e] + red[rr * LDR + cc];
     }
   }
+}
+
+template <class Sweeper>
+__global__ void __launch_bounds__(THREADS, 2)
+paired_fwd_kernel(const int8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ q,
+                  const float* __restrict__ scales, float* __restrict__ partial, int K, int N,
+                  int H, int Hq, int rel_splits, int con_splits) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const size_t half_q = static_cast<size_t>(K) * Hq * ((N + TK - 1) / TK * TK);
+  const Sweep s = block_sweep(mask, K, N, Hq, q, q + half_q, rel_splits, con_splits);
+  FwdEpilogue<ScaleRows> epi{{scales, N}, N, s.n0};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) epi.total[j][e] = 0.f;
+  Sweeper::run(s, epi, smem);
+  store_partial(epi, s, partial + static_cast<size_t>(blockIdx.y) * N * H, N, H, smem);
 }
 
 // The sweep of the main path.

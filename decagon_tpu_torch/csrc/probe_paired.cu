@@ -1,15 +1,16 @@
-// Probes of the paired SpMM for Hopper (sm_90a): variants of K1/K2
-// (paired_fwd.cu) that take its cost apart, and the backward's contract.
+// Probes of the paired SpMM for Hopper (sm_90a): variants of K1/K2's
+// former WMMA design that take its cost apart.
 //
 // Replaces the TPU probes
 //   P3 scripts/probe_paired_parts.py::run (its kernel),
-//   P2 scripts/probe_paired_orient.py::make_kernel,
-//   P1 scripts/probe_paired_idioms.py::kernel (via paired),
-//   P4 scripts/probe_paired_bwd_idioms.py::kernel (via paired_bwd).
+//   P2 scripts/probe_paired_orient.py::make_kernel.
+// (P1 and P4, which measured the same design's forward in the node-major
+// layout and its backward, now run the main path's sweep: paired_fwd.cu's
+// dt_paired_fwd_aug and paired_bwd.cu's dt_paired_bwd_unscaled.)
 //
-// Forward probes (P1-P3).  For K relations of an [Km >= K, N, N] mask B
-// (int8, or bf16 for P2's both and small_t) and bf16 operands pe_k, po_k [H, N] (P2, P3: the
-// halves of p4 [2, K, H, N]) they compute, with f32 sums,
+// For K relations of an [Km >= K, N, N] mask B (int8, or bf16 for P2's
+// both and small_t) and bf16 operands pe_k, po_k [H, N] (the halves of p4
+// [2, K, H, N]) they compute, with f32 sums,
 //
 //   both / two_dots   out[h, n] = sum_k ae[k,n] (pe_k B_k^T)[h,n] + ao[k,n] (po_k B_k)[h,n]
 //   direct (xe_only)  out = sum_k ae (pe_k B_k^T)
@@ -18,28 +19,16 @@
 //   dma (dma_only)    out = 0, after staging every operand as "both" does
 //
 // with the row scales ae, ao from sc [Km, 2, N] f32 (P2) or 1 (P3, sc
-// null).  P1 ("aug" layout) reads pe_aug, po_aug [K, N, 128] bf16: columns
-// :H hold the operand [N, H] and column H the row scale (so the scales are
-// bf16-rounded), and writes out [N, 128] with columns H: zero:
-//
-//   out[n, :H] = sum_k ae[k,n] (B_k pe_k)[n,:] + ao[k,n] (B_k^T po_k)[n,:].
-//
-// P4 computes, per relation and with no sum over relations,
-//
-//   de[k, h, j] = bf16(sum_i bf16(ae[k,i] ct[h,i]) B_k[i,j])
-//   do[k, h, i] = bf16(sum_j bf16(ao[k,j] ct[h,j]) B_k[i,j])
-//
-// from ct [H, N] f32 (the cotangent, transposed) and sc [K, 2, N] f32;
-// bf16 rounds to nearest even.  H <= 64 throughout (one hidden slice).
+// null).  H <= 64 throughout (one hidden slice).
 //
 // Bound on this card: bytes.  Each mask byte is needed once (400 MB at the
 // paper's K = 963, N = 645) and the products, 2 H N^2 per relation and
 // orientation on the bf16 tensor cores, need about 0.1 ms of the card's
 // peak there.
 //
-// Design.  The forward probes keep K1's tiles, staging and accumulation so
-// that their parts add up against K1's own time: a block owns 64 output
-// rows and the relations [b kb, (b+1) kb) ("kb" is K1's split); per
+// Design.  The forward probes keep K1's former tiles, staging and
+// accumulation so that their parts add up against that design's time: a
+// block owns 64 output rows and the relations [b kb, (b+1) kb); per
 // relation it sweeps the contraction in 64-wide chunks, stages the mask
 // tiles (B[rows, chunk] for the direct orientation, B[chunk, rows] for the
 // transposed one) as bf16 with one-byte loads and the operand chunks into
@@ -57,9 +46,6 @@
 // (transposed), so a block owns a whole [N, 64] output strip in shared
 // memory (N <= 768) and the relations [b kb, (b+1) kb); eight warps, four
 // a half, and the row scales applied per tile product.
-//
-// P4 is K3/K4 (paired_bwd.cu) without the column scales, on K1's staging:
-// one block per (64-node tile, relation) owns its piece of de and do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,7 +64,6 @@ constexpr int THREADS = WARPS * 32;
 constexpr int LDA = TK + 8;       // bf16 row stride of the mask tiles
 constexpr int LDP = HS + 8;       // bf16 row stride of the operand tiles
 constexpr int LDC = HS + 4;       // f32 row stride of the accumulator staging
-constexpr int AUG = 128;          // P1's operand and output row width
 constexpr int NH = HS / 16;
 
 constexpr int MASK_BYTES = TM * LDA * 2;
@@ -88,7 +73,6 @@ constexpr int ACC_BYTES = 2 * TM * LDC * 4;
 constexpr int SMEM_BYTES = STAGE_BYTES > ACC_BYTES ? STAGE_BYTES : ACC_BYTES;
 
 enum Mode { DIRECT = 1, TRANS = 2, BOTH = 3, M128 = 4, DMA = 5, SMALL_T = 6 };
-enum Layout { HN = 0, NAUG = 1 };
 
 using bf16 = __nv_bfloat16;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
@@ -123,28 +107,19 @@ __device__ __forceinline__ void stage_trans(bf16* mo, const M* bk, int n0, int c
   }
 }
 
-// p[c][h] = the operand at contraction index c0 + c, hidden column h
-// (zero past N and past H): from p_k [H, N] (HN) or p_k [N, AUG] (NAUG).
-template <int LAYOUT>
+// p[c][h] = the operand p_k [H, N] at contraction index c0 + c, hidden
+// column h (zero past N and past H).
 __device__ __forceinline__ void stage_operand(bf16* p, const bf16* pk, int c0, int N, int H,
                                               int nh, int tid, int threads) {
   const bf16 zero = __float2bfloat16_rn(0.f);
-  if (LAYOUT == HN) {
-    for (int idx = tid; idx < nh * 16 * TK; idx += threads) {
-      const int h = idx / TK, c = idx % TK;
-      const int j = c0 + c;
-      p[c * LDP + h] = (j < N && h < H) ? pk[static_cast<size_t>(h) * N + j] : zero;
-    }
-  } else {
-    for (int idx = tid; idx < nh * 16 * TK; idx += threads) {
-      const int c = idx / (nh * 16), h = idx % (nh * 16);
-      const int j = c0 + c;
-      p[c * LDP + h] = (j < N && h < H) ? pk[static_cast<size_t>(j) * AUG + h] : zero;
-    }
+  for (int idx = tid; idx < nh * 16 * TK; idx += threads) {
+    const int h = idx / TK, c = idx % TK;
+    const int j = c0 + c;
+    p[c * LDP + h] = (j < N && h < H) ? pk[static_cast<size_t>(h) * N + j] : zero;
   }
 }
 
-template <typename M, int MODE, int LAYOUT>
+template <typename M, int MODE>
 __global__ void __launch_bounds__(THREADS, 3)
 probe_fwd_kernel(const M* __restrict__ mask, const bf16* __restrict__ pe_g,
                  const bf16* __restrict__ po_g, long long p_rel, const float* __restrict__ sc,
@@ -194,8 +169,8 @@ probe_fwd_kernel(const M* __restrict__ mask, const bf16* __restrict__ pe_g,
       __syncthreads();  // the previous chunk (or staging) is consumed
       if (STAGE_ME) stage_direct(me, bk, n0, c0, N, tid, THREADS);
       if (STAGE_MO) stage_trans(mo, bk, n0, c0, N, tid);
-      if (STAGE_PE) stage_operand<LAYOUT>(pe, pek, c0, N, H, nh, tid, THREADS);
-      if (STAGE_PO) stage_operand<LAYOUT>(po, pok, c0, N, H, nh, tid, THREADS);
+      if (STAGE_PE) stage_operand(pe, pek, c0, N, H, nh, tid, THREADS);
+      if (STAGE_PO) stage_operand(po, pok, c0, N, H, nh, tid, THREADS);
       __syncthreads();
       if (MODE == DMA) {
         if (sink) {
@@ -242,16 +217,11 @@ probe_fwd_kernel(const M* __restrict__ mask, const bf16* __restrict__ pe_g,
 #pragma unroll
     for (int t = 0; t < PER_THREAD; ++t) {
       const int e = tid + t * THREADS;
-      // HN stores along n (threads on neighbouring rows), NAUG along h.
-      const int r = LAYOUT == HN ? e % TM : e / HS;
-      const int h = LAYOUT == HN ? e / TM : e % HS;
+      const int r = e % TM, h = e / TM;  // threads on neighbouring rows
       const int n = n0 + r;
       if (n < N && h < H) {
         float se = 1.f, so = 1.f;
-        if (LAYOUT == NAUG) {
-          se = __bfloat162float(pek[static_cast<size_t>(n) * AUG + H]);
-          so = __bfloat162float(pok[static_cast<size_t>(n) * AUG + H]);
-        } else if (sc != nullptr) {
+        if (sc != nullptr) {
           se = sc[static_cast<size_t>(k) * 2 * N + n];
           so = sc[static_cast<size_t>(k) * 2 * N + N + n];
         }
@@ -263,20 +233,13 @@ probe_fwd_kernel(const M* __restrict__ mask, const bf16* __restrict__ pe_g,
     }
   }
 
-  const size_t count = LAYOUT == HN ? static_cast<size_t>(H) * N : static_cast<size_t>(N) * AUG;
-  float* dst = partial + blockIdx.y * count;
+  float* dst = partial + blockIdx.y * static_cast<size_t>(H) * N;
 #pragma unroll
   for (int t = 0; t < PER_THREAD; ++t) {
     const int e = tid + t * THREADS;
-    const int r = LAYOUT == HN ? e % TM : e / HS;
-    const int h = LAYOUT == HN ? e / TM : e % HS;
+    const int r = e % TM, h = e / TM;
     const int n = n0 + r;
-    if (n < N && h < H) {
-      if (LAYOUT == HN)
-        dst[static_cast<size_t>(h) * N + n] = total[t];
-      else
-        dst[static_cast<size_t>(n) * AUG + h] = total[t];
-    }
+    if (n < N && h < H) dst[static_cast<size_t>(h) * N + n] = total[t];
   }
   if (MODE == DMA && sink) dst[0] += checksum;
 }
@@ -323,11 +286,11 @@ probe_small_t_kernel(const M* __restrict__ mask, const bf16* __restrict__ p4,
     const float* ao = ae + N;
     for (int R = 0; R < tiles; ++R) {
       __syncthreads();  // the previous R's po chunk is consumed
-      stage_operand<HN>(po, pok, R * TM, N, H, nh, tid, ST_THREADS);
+      stage_operand(po, pok, R * TM, N, H, nh, tid, ST_THREADS);
       for (int C = 0; C < tiles; ++C) {
         if (C > 0) __syncthreads();  // the previous tile and pe chunk are consumed
         stage_direct(tile, bk, R * TM, C * TK, N, tid, ST_THREADS);
-        stage_operand<HN>(pe, pek, C * TK, N, H, nh, tid, ST_THREADS);
+        stage_operand(pe, pek, C * TK, N, H, nh, tid, ST_THREADS);
         __syncthreads();
         FragC f[NH];
 #pragma unroll
@@ -390,108 +353,23 @@ probe_small_t_kernel(const M* __restrict__ mask, const bf16* __restrict__ p4,
   }
 }
 
-// P4: one block per (64-node tile, relation).
-__global__ void __launch_bounds__(THREADS, 3)
-probe_bwd_kernel(const int8_t* __restrict__ mask, const float* __restrict__ ct,
-                 const float* __restrict__ sc, bf16* __restrict__ de, bf16* __restrict__ dout,
-                 int N, int H) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  bf16* md = reinterpret_cast<bf16*>(smem);                   // B[n0 + r, c0 + c]
-  bf16* mt = reinterpret_cast<bf16*>(smem + MASK_BYTES);      // B[c0 + c, n0 + r]
-  bf16* ce = reinterpret_cast<bf16*>(smem + 2 * MASK_BYTES);  // bf16(ae * ct) chunk
-  bf16* co = reinterpret_cast<bf16*>(smem + 2 * MASK_BYTES + OPND_BYTES);
-  float* acc0 = reinterpret_cast<float*>(smem);
-  float* acc1 = acc0 + TM * LDC;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int n0 = blockIdx.x * TM;
-  const int k = blockIdx.y;
-  const int nh = (H + 15) / 16;
-  const int8_t* bk = mask + k * static_cast<size_t>(N) * N;
-  const float* ae = sc + static_cast<size_t>(k) * 2 * N;
-  const float* ao = ae + N;
-
-  // f0: de (output node j = n0 + row, contraction over i);
-  // f1: do (output node i = n0 + row, contraction over j).
-  FragC f0[NH], f1[NH];
-#pragma unroll
-  for (int t = 0; t < NH; ++t) {
-    wmma::fill_fragment(f0[t], 0.f);
-    wmma::fill_fragment(f1[t], 0.f);
-  }
-  for (int c0 = 0; c0 < N; c0 += TK) {
-    __syncthreads();
-    stage_direct(md, bk, n0, c0, N, tid, THREADS);
-    stage_trans(mt, bk, n0, c0, N, tid);
-    for (int idx = tid; idx < nh * 16 * TK; idx += THREADS) {
-      const int h = idx / TK, c = idx % TK;
-      const int x = c0 + c;
-      float ve = 0.f, vo = 0.f;
-      if (x < N && h < H) {
-        const float g = ct[static_cast<size_t>(h) * N + x];
-        ve = ae[x] * g;
-        vo = ao[x] * g;
-      }
-      ce[c * LDP + h] = __float2bfloat16_rn(ve);
-      co[c * LDP + h] = __float2bfloat16_rn(vo);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      FragA at, ad;
-      wmma::load_matrix_sync(at, mt + warp * 16 * LDA + kk * 16, LDA);
-      wmma::load_matrix_sync(ad, md + warp * 16 * LDA + kk * 16, LDA);
-#pragma unroll
-      for (int t = 0; t < NH; ++t) {
-        if (t >= nh) break;
-        FragB fb;
-        wmma::load_matrix_sync(fb, ce + kk * 16 * LDP + t * 16, LDP);
-        wmma::mma_sync(f0[t], at, fb, f0[t]);
-        wmma::load_matrix_sync(fb, co + kk * 16 * LDP + t * 16, LDP);
-        wmma::mma_sync(f1[t], ad, fb, f1[t]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int t = 0; t < NH; ++t) {
-    if (t >= nh) break;
-    wmma::store_matrix_sync(acc0 + warp * 16 * LDC + t * 16, f0[t], LDC, wmma::mem_row_major);
-    wmma::store_matrix_sync(acc1 + warp * 16 * LDC + t * 16, f1[t], LDC, wmma::mem_row_major);
-  }
-  __syncthreads();
-  bf16* d0 = de + static_cast<size_t>(k) * H * N;
-  bf16* d1 = dout + static_cast<size_t>(k) * H * N;
-  for (int idx = tid; idx < H * TM; idx += THREADS) {
-    const int h = idx / TM, r = idx % TM;
-    const int n = n0 + r;
-    if (n >= N) continue;
-    d0[static_cast<size_t>(h) * N + n] = __float2bfloat16_rn(acc0[r * LDC + h]);
-    d1[static_cast<size_t>(h) * N + n] = __float2bfloat16_rn(acc1[r * LDC + h]);
-  }
-}
-
-// out[x] = sum over splits of partial[s, x], in split order; 0 where
-// x % cols >= used (P1's columns H:).
+// out[x] = sum over splits of partial[s, x], in split order.
 __global__ void probe_sum_splits_kernel(const float* __restrict__ partial,
-                                        float* __restrict__ out, int splits, size_t count,
-                                        int cols, int used) {
+                                        float* __restrict__ out, int splits, size_t count) {
   for (size_t x = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; x < count;
        x += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float acc = 0.f;
-    if (static_cast<int>(x % cols) < used)
-      for (int s = 0; s < splits; ++s) acc += partial[s * count + x];
+    for (int s = 0; s < splits; ++s) acc += partial[s * count + x];
     out[x] = acc;
   }
 }
 
-template <typename M, int MODE, int LAYOUT>
+template <typename M, int MODE>
 cudaError_t launch_fwd(const void* mask, const void* pe, const void* po, long long p_rel,
                        const float* sc, float* partial, int K, int N, int H, int kb,
                        int splits, cudaStream_t s) {
   dim3 grid((N + TM - 1) / TM, splits);
-  probe_fwd_kernel<M, MODE, LAYOUT><<<grid, THREADS, 0, s>>>(
+  probe_fwd_kernel<M, MODE><<<grid, THREADS, 0, s>>>(
       static_cast<const M*>(mask), static_cast<const bf16*>(pe), static_cast<const bf16*>(po),
       p_rel, sc, partial, K, N, H, kb, 0);
   return cudaGetLastError();
@@ -511,13 +389,22 @@ cudaError_t launch_small_t(const void* mask, const void* p4, const float* sc, fl
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_hn(int mode, const void* mask, const void* pe, const void* po,
-                        long long p_rel, const float* sc, float* partial, int K, int N, int H,
-                        int kb, int splits, cudaStream_t s) {
+cudaError_t dispatch(int mode, int mask_bf16, const void* mask, const void* pe,
+                     const void* po, long long p_rel, const float* sc, float* partial, int K,
+                     int N, int H, int kb, int splits, cudaStream_t s) {
+  if (mask_bf16) {
+    switch (mode) {
+      case BOTH: return launch_fwd<bf16, BOTH>(mask, pe, po, p_rel, sc, partial, K, N, H, kb, splits, s);
+      case SMALL_T: return launch_small_t<bf16>(mask, pe, sc, partial, K, N, H, kb, splits, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (mode) {
-    case DIRECT: return launch_fwd<int8_t, DIRECT, HN>(mask, pe, po, p_rel, sc, partial, K, N, H, kb, splits, s);
-    case TRANS: return launch_fwd<int8_t, TRANS, HN>(mask, pe, po, p_rel, sc, partial, K, N, H, kb, splits, s);
-    case BOTH: return launch_fwd<int8_t, BOTH, HN>(mask, pe, po, p_rel, sc, partial, K, N, H, kb, splits, s);
+    case DIRECT: return launch_fwd<int8_t, DIRECT>(mask, pe, po, p_rel, sc, partial, K, N, H, kb, splits, s);
+    case TRANS: return launch_fwd<int8_t, TRANS>(mask, pe, po, p_rel, sc, partial, K, N, H, kb, splits, s);
+    case BOTH: return launch_fwd<int8_t, BOTH>(mask, pe, po, p_rel, sc, partial, K, N, H, kb, splits, s);
+    case M128: return launch_fwd<int8_t, M128>(mask, pe, po, p_rel, sc, partial, K, N, H, kb, splits, s);
+    case DMA: return launch_fwd<int8_t, DMA>(mask, pe, po, p_rel, sc, partial, K, N, H, kb, splits, s);
     case SMALL_T: return launch_small_t<int8_t>(mask, pe, sc, partial, K, N, H, kb, splits, s);
     default: return cudaErrorInvalidValue;
   }
@@ -528,61 +415,26 @@ cudaError_t dispatch_hn(int mode, const void* mask, const void* pe, const void* 
 extern "C" {
 
 // Forward probes.  mask [Km >= K, N, N], int8 or bf16 (mask_bf16); pe, po
-// bf16 operand stacks with p_rel elements a relation: layout 0 (HN) the
-// halves of p4 [2, K, H, N] (pe = p4, po = p4 + K H N, p_rel = H N),
-// layout 1 (NAUG) pe_aug, po_aug [K, N, 128] (p_rel = 128 N); sc f32
-// [Km, 2, N] row scales or null (HN only; required by small_t); mode: 1
-// direct, 2 trans, 3 both, 4 m128, 5 dma, 6 small_t; kb relations a block.
-// partial: f32 scratch of ceil(K / kb) outputs; out f32 [H, N] (HN) or
-// [N, 128] (NAUG).  int8 takes every mode in HN and "both" in NAUG; bf16
-// masks take both and small_t in HN.
+// bf16 operand stacks with p_rel elements a relation (the halves of p4
+// [2, K, H, N]: pe = p4, po = p4 + K H N, p_rel = H N); sc f32 [Km, 2, N]
+// row scales or null (required by small_t); mode: 1 direct, 2 trans, 3
+// both, 4 m128, 5 dma, 6 small_t; kb relations a block.  partial: f32
+// scratch of ceil(K / kb) outputs; out f32 [H, N].  int8 takes every
+// mode; bf16 masks take both and small_t.
 int dt_probe_paired(const void* mask, int mask_bf16, const void* pe, const void* po,
-                    long long p_rel, const void* sc, int mode, int layout, void* partial,
-                    void* out, int K, int N, int H, int kb, void* stream) {
+                    long long p_rel, const void* sc, int mode, void* partial, void* out, int K,
+                    int N, int H, int kb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K < 1 || N < 1 || H < 1 || H > HS || kb < 1 || (layout == NAUG && H >= AUG))
-    return cudaErrorInvalidValue;
+  if (K < 1 || N < 1 || H < 1 || H > HS || kb < 1) return cudaErrorInvalidValue;
   const int splits = (K + kb - 1) / kb;
   if (splits > 65535) return cudaErrorInvalidValue;
-  const float* scf = static_cast<const float*>(sc);
   float* part = static_cast<float*>(partial);
-  cudaError_t err;
-  if (layout == NAUG) {
-    if (mask_bf16 || mode != BOTH) return cudaErrorInvalidValue;
-    err = launch_fwd<int8_t, BOTH, NAUG>(mask, pe, po, p_rel, nullptr, part, K, N, H, kb,
-                                         splits, s);
-  } else if (layout != HN) {
-    return cudaErrorInvalidValue;
-  } else if (mask_bf16 && mode == BOTH) {
-    err = launch_fwd<bf16, BOTH, HN>(mask, pe, po, p_rel, scf, part, K, N, H, kb, splits, s);
-  } else if (mask_bf16 && mode == SMALL_T) {
-    err = launch_small_t<bf16>(mask, pe, scf, part, K, N, H, kb, splits, s);
-  } else if (mask_bf16) {
-    return cudaErrorInvalidValue;
-  } else if (mode == M128) {
-    err = launch_fwd<int8_t, M128, HN>(mask, pe, po, p_rel, scf, part, K, N, H, kb, splits, s);
-  } else if (mode == DMA) {
-    err = launch_fwd<int8_t, DMA, HN>(mask, pe, po, p_rel, scf, part, K, N, H, kb, splits, s);
-  } else {
-    err = dispatch_hn(mode, mask, pe, po, p_rel, scf, part, K, N, H, kb, splits, s);
-  }
+  cudaError_t err = dispatch(mode, mask_bf16, mask, pe, po, p_rel, static_cast<const float*>(sc),
+                             part, K, N, H, kb, splits, s);
   if (err != cudaSuccess) return err;
-  const size_t count = layout == HN ? static_cast<size_t>(H) * N : static_cast<size_t>(N) * AUG;
+  const size_t count = static_cast<size_t>(H) * N;
   const int blocks = static_cast<int>((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
-  probe_sum_splits_kernel<<<blocks, 256, 0, s>>>(part, static_cast<float*>(out), splits, count,
-                                                 layout == HN ? 1 : AUG, layout == HN ? 1 : H);
-  return cudaGetLastError();
-}
-
-// P4.  mask int8 [K, N, N]; ct f32 [H, N]; sc f32 [K, 2, N]; de, dout
-// bf16 [K, H, N].
-int dt_probe_paired_bwd(const void* mask, const void* ct, const void* sc, void* de, void* dout,
-                        int K, int N, int H, void* stream) {
-  if (K < 1 || K > 65535 || N < 1 || H < 1 || H > HS) return cudaErrorInvalidValue;
-  dim3 grid((N + TM - 1) / TM, K);
-  probe_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(mask), static_cast<const float*>(ct),
-      static_cast<const float*>(sc), static_cast<bf16*>(de), static_cast<bf16*>(dout), N, H);
+  probe_sum_splits_kernel<<<blocks, 256, 0, s>>>(part, static_cast<float*>(out), splits, count);
   return cudaGetLastError();
 }
 

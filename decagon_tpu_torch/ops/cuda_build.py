@@ -144,6 +144,12 @@ def library() -> ctypes.CDLL:
             lib.dt_paired_bwd.argtypes = [
                 _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
             ]
+            lib.dt_paired_fwd_aug.restype = _I
+            lib.dt_paired_fwd_aug.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+            lib.dt_paired_bwd_unscaled.restype = _I
+            lib.dt_paired_bwd_unscaled.argtypes = [
+                _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+            ]
             for name in ("dt_paired_fwd_info", "dt_paired_bwd_info"):
                 getattr(lib, name).restype = _I
                 getattr(lib, name).argtypes = [_P]
@@ -164,12 +170,10 @@ def library() -> ctypes.CDLL:
             lib.dt_probe_column_sum.argtypes = [_P, _I, _L, _I, _I, _I, _P, _P, _P]
             lib.dt_probe_paired.restype = _I
             lib.dt_probe_paired.argtypes = [
-                _P, _I, _P, _P, _L, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                _P, _I, _P, _P, _L, _P, _I, _P, _P, _I, _I, _I, _I, _P,
             ]
             lib.dt_probe_paired_sweep.restype = _I
             lib.dt_probe_paired_sweep.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-            lib.dt_probe_paired_bwd.restype = _I
-            lib.dt_probe_paired_bwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
             lib.dt_error_string.restype = ctypes.c_char_p
             lib.dt_error_string.argtypes = [_I]
             _lib = lib

@@ -3,13 +3,15 @@
 
     python -m decagon_tpu_torch.scripts.probe_paired_bwd_idioms
 
-``paired_bwd(mask, ctT, sc)`` is the kernel of ``csrc/probe_paired.cu``
-(K3/K4's work without the column scales): per relation k of the int8
+``paired_bwd(mask, ctT, sc)`` runs K3/K4's kernel (``csrc/paired_bwd.cu``,
+entry ``dt_paired_bwd_unscaled``: the sweep of ``csrc/paired_core.cuh``
+with unit column scales and bf16 out, at the cut
+``spmm_paired.launch_schedule("bwd", ...)``): per relation k of the int8
 mask ``[K, N, N]``, from the cotangent ``ctT [H, N]`` f32 and the row
 scales ``sc [K, 2, N]`` f32,
 
-    de[k] = bf16(bf16(a_e[k] * ctT) @ B_k)      # [H, N]
-    do[k] = bf16(bf16(a_o[k] * ctT) @ B_k^T)
+    de[k] = bf16(bf16(a_e[k] * ctT) @ B_k)      # [H, N], K3's d[0]
+    do[k] = bf16(bf16(a_o[k] * ctT) @ B_k^T)    # K3's d[1]
 
 bf16 rounding to nearest even, with the cast before the product.
 ``paired_bwd_ref`` is the plain version.  Tolerance: both round the same
@@ -21,8 +23,9 @@ differs, and that can flip a bf16 output to its neighbour: elementwise
 N = 645, H = 64 from numpy draws (seed 0), the kernel against a float64
 numpy oracle (max error < 2e-2 of the largest output, the TPU probe's
 bound), then the kernel against its plain version and its CUDA-event
-time at K = 963 (a ``[963, 645, 645]`` stack with 1% ones); last, one
-JSON object naming the card.
+time at K = 963 (a ``[963, 645, 645]`` stack with 1% ones), and K3/K4
+(``spmm_paired.paired_bwd``) on the same inputs (``as_backward``), with
+whether the two agree bit for bit; last, one JSON object naming the card.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from decagon_tpu_torch.ops import cuda_build
+from decagon_tpu_torch.ops import cuda_build, spmm_paired
 from decagon_tpu_torch.scripts import probing
 
 N, H, K = 645, 64, 4
@@ -55,11 +58,21 @@ def paired_bwd_ref(mask: torch.Tensor, ctT: torch.Tensor,
     return de, do
 
 
+def as_backward(sc: torch.Tensor) -> torch.Tensor:
+    """K3/K4's scales for P4's row scales: ``[K, 4, N]`` f32 with rows
+    ``a_e``, ``a_o`` and unit column scales, so that
+    ``spmm_paired.paired_bwd(ctT, mask, as_backward(sc), None, torch.bfloat16)``
+    is ``paired_bwd``'s ``(de, do)`` stacked."""
+    ones = torch.ones_like(sc[:, 0])
+    return torch.stack([sc[:, 0], sc[:, 1], ones, ones], dim=1).contiguous()
+
+
 def paired_bwd(mask: torch.Tensor, ctT: torch.Tensor,
                sc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(de, do)`` of ``paired_bwd_ref``: the CUDA kernel for CUDA tensors
-    (mask int8 ``[K, N, N]``, ``ctT`` f32 ``[H <= 64, N]``, ``sc`` f32
-    ``[K, 2, N]``, all contiguous), the plain version for CPU tensors."""
+    """``(de, do)`` of ``paired_bwd_ref``: the sweep for CUDA tensors
+    (mask int8 ``[K, N, N]``, ``ctT`` f32 ``[H, N]``, ``sc`` f32 ``[K, 2,
+    N]``, all contiguous), the plain version for CPU tensors.  The two are
+    the halves of one ``[2, K, H, N]`` output."""
     if ctT.device.type == "cpu":
         return paired_bwd_ref(mask, ctT, sc)
     if ctT.device.type != "cuda":
@@ -72,27 +85,32 @@ def paired_bwd(mask: torch.Tensor, ctT: torch.Tensor,
     k = mask.shape[0]
     if sc.dtype != torch.float32 or tuple(sc.shape) != (k, 2, n):
         raise ValueError(f"sc must be float32 [{k}, 2, {n}], got {sc.dtype} {tuple(sc.shape)}")
-    if not 1 <= h <= probing.MAX_H or not 1 <= k <= 65535:
-        raise ValueError(f"H must be in 1..{probing.MAX_H} and K in 1..65535, got {h}, {k}")
+    if k < 1 or h < 1:
+        raise ValueError(f"K and H must be >= 1, got {k}, {h}")
     probing.check_on("paired_bwd", ctT.device, mask=mask, ctT=ctT, sc=sc)
-    lib = cuda_build.library()
-    with torch.cuda.device(ctT.device):
-        de = torch.empty((k, h, n), dtype=torch.bfloat16, device=ctT.device)
-        do = torch.empty((k, h, n), dtype=torch.bfloat16, device=ctT.device)
-        status = lib.dt_probe_paired_bwd(
-            mask.data_ptr(), ctT.data_ptr(), sc.data_ptr(), de.data_ptr(), do.data_ptr(),
-            k, n, h, torch.cuda.current_stream().cuda_stream,
+    dev = ctT.device
+    with torch.cuda.device(dev):
+        sched = spmm_paired.launch_schedule("bwd", k, n, h, dev)
+        q = torch.empty((2, k, sched.hq, sched.npad), dtype=torch.bfloat16, device=dev)
+        d = torch.empty((2, k, h, n), dtype=torch.bfloat16, device=dev)
+        partial = d if sched.con_splits == 1 else torch.empty(
+            (sched.con_splits, 2, k, h, n), dtype=torch.float32, device=dev)
+        status = cuda_build.library().dt_paired_bwd_unscaled(
+            mask.data_ptr(), ctT.data_ptr(), sc.data_ptr(), q.data_ptr(), partial.data_ptr(),
+            d.data_ptr(), k, n, h, sched.rel_splits, sched.con_splits,
+            torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(status, "probe_paired_bwd_idioms")
     cuda_build.LAUNCHES["probe_paired_bwd_idioms"] += 1
-    return de, do
+    return d[0], d[1]
 
 
-def numpy_inputs(k: int = K, n: int = N, h: int = H, seed: int = 0):
+def numpy_inputs(k: int = K, n: int = N, h: int = H, seed: int = 0,
+                 density: float = DENSITY):
     """The TPU probe's draws: mask ``[k, n, n]`` int8, ``ct [n, h]`` f32,
     ``sc [k, 2, n]`` f32."""
     rng = np.random.default_rng(seed)
-    mask = (rng.random((k, n, n)) < DENSITY).astype(np.int8)
+    mask = (rng.random((k, n, n)) < density).astype(np.int8)
     ct = rng.standard_normal((n, h)).astype(np.float32)
     sc = rng.random((k, 2, n)).astype(np.float32)
     return mask, ct, sc
@@ -148,9 +166,16 @@ def main() -> int:
     print("PAIRED BWD IDIOMS OK", flush=True)
     small = probing.run([variant(*(torch.from_numpy(a).to(device)
                                    for a in (mask, ct.T.copy(), sc)))], REPS)
-    full = probing.run([variant(*device_inputs(device))], REPS, plain_reps=2)
+    mask, ctT, sc = device_inputs(device)
+    full = probing.run([variant(mask, ctT, sc)], REPS, plain_reps=2)
+    # K3/K4 on the same inputs: the main path's kernel at unit column scales.
+    scales = as_backward(sc)
+    k3 = spmm_paired.paired_bwd(ctT, mask, scales, None, torch.bfloat16)
+    k3 = dict(ms=probing.cuda_ms(
+        lambda: spmm_paired.paired_bwd(ctT, mask, scales, None, torch.bfloat16), REPS),
+        equal=all(torch.equal(a, b) for a, b in zip(paired_bwd(mask, ctT, sc), k3)))
     print(json.dumps({"probe": "paired_bwd_idioms", "device": smi, "reps": REPS,
-                      "oracle_rel_err": err, "rows": small + full}))
+                      "oracle_rel_err": err, "rows": small + full, "k3_same_inputs": k3}))
     return 0
 
 

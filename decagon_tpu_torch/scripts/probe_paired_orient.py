@@ -98,7 +98,7 @@ def paired_orient(mask: torch.Tensor, p4: torch.Tensor, sc: torch.Tensor, mode: 
                          f"{probing.STRIP_MAX_N}, got {n}")
     probing.check_on("paired_orient", p4.device, mask=mask, p4=p4, sc=sc)
     return probing.launch_paired("probe_paired_orient", mask, p4[0], p4[1], h * n, sc,
-                                 _CODES[mode], probing.HN, (h, n), k, n, h, kb)
+                                 _CODES[mode], k, n, h, kb)
 
 
 def make_scales(device, seed: int = 0, kpad: int = KPAD, n: int = N) -> torch.Tensor:

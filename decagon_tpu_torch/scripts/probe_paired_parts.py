@@ -93,7 +93,7 @@ def paired_parts(mask: torch.Tensor, p4: torch.Tensor, mode: str, kb: int = 4) -
         raise ValueError(f"H must be in 1..{probing.MAX_H} and kb >= 1, got {h}, {kb}")
     probing.check_on("paired_parts", p4.device, mask=mask, p4=p4)
     return probing.launch_paired("probe_paired_parts", mask, p4[0], p4[1], h * n, None,
-                                 _CODES[mode], probing.HN, (h, n), k, n, h, kb)
+                                 _CODES[mode], k, n, h, kb)
 
 
 def make_inputs(device, seed: int = 0, k: int = K, n: int = N, h: int = H, kpad: int = KPAD):

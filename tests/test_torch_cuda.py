@@ -30,6 +30,7 @@ its outputs to bf16 after such sums, so the paired backward's bf16 rule
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -882,11 +883,27 @@ def test_probe_paired_orient_small_t_strip_limit(cuda_device):
             mask, p4, probe_paired_orient.make_scales(cuda_device, kpad=2, n=769), "small_t")
 
 
-@pytest.mark.parametrize("k,n,h", [(4, 645, 64), (3, 70, 24), (2, 130, 64), (963, 645, 64)])
+# P1 and P4 run the paired sweep: the ragged shapes of their CPU tests
+# (tests/test_torch_probe_sweep.py) and the probes' own.
+SWEEP_PROBE_SHAPES = [*itertools.product((1, 3, 4), (20, 70, 645), (16, 40, 64)),
+                      (963, 645, 64)]
+
+
+def _sweep_probe_check(v, counter):
+    """``_probe_check`` of a probe on the paired sweep: its launches are
+    counted under its own name, never under the main path's kernels."""
+    before = {name: cuda_build.LAUNCHES[name] for name in ("paired_fwd", "paired_bwd")}
+    row = _probe_check(v, counter)
+    assert {name: cuda_build.LAUNCHES[name] for name in before} == before
+    return row
+
+
+@pytest.mark.parametrize("k,n,h", SWEEP_PROBE_SHAPES)
 def test_probe_paired_bwd_idioms_kernel_matches_plain(cuda_device, k, n, h):
     mask, ctT, sc = probe_paired_bwd_idioms.device_inputs(cuda_device, k=k, n=n, h=h, seed=k)
     mask[0, 0, :2] = 2
-    row = _probe_check(probe_paired_bwd_idioms.variant(mask, ctT, sc), "probe_paired_bwd_idioms")
+    row = _sweep_probe_check(probe_paired_bwd_idioms.variant(mask, ctT, sc),
+                             "probe_paired_bwd_idioms")
     assert row["bitwise_repeat"]
 
 
@@ -899,13 +916,33 @@ def test_probe_paired_bwd_idioms_kernel_meets_the_numpy_oracle(cuda_device):
     assert err < 2e-2
 
 
-@pytest.mark.parametrize("kb", [1, 3])
-@pytest.mark.parametrize("k,n,h", [(4, 645, 64), (3, 70, 24), (5, 130, 64), (963, 645, 64)])
+# P1's cuts: the schedule's, one relation a block and three; the probe's
+# shape at its two timed cuts.
+P1_CASES = [(*shape, kb) for shape in SWEEP_PROBE_SHAPES[:-1] for kb in (None, 1, 3)] + \
+    [(963, 645, 64, None), (963, 645, 64, 1)]
+
+
+@pytest.mark.parametrize("k,n,h,kb", P1_CASES)
 def test_probe_paired_idioms_kernel_matches_plain(cuda_device, k, n, h, kb):
     mask, pe_aug, po_aug = probe_paired_idioms.device_inputs(cuda_device, k=k, n=n, h=h, seed=k)
+    mask[0, 0, :2] = 2
     v = probe_paired_idioms.variant(mask, pe_aug, po_aug, h=h, kb=kb)
-    _probe_check(v, "probe_paired_idioms")
+    _sweep_probe_check(v, "probe_paired_idioms")
     assert not v.kernel()[:, h:].any()
+
+
+@pytest.mark.parametrize("k,n,h", [(1, 645, 64), (3, 70, 40), (4, 20, 16), (963, 645, 64)])
+def test_probe_sweeps_equal_the_paired_kernels_at_unit_column_scales(cuda_device, k, n, h):
+    """P1 and P4 run K1/K2's and K3's sweep at the same cut: on the same
+    inputs with unit column scales, the same bits."""
+    mask, pe_aug, po_aug = probe_paired_idioms.device_inputs(cuda_device, k=k, n=n, h=h, seed=k)
+    p4, scales = probe_paired_idioms.as_forward(mask, pe_aug, po_aug, h)
+    out = probe_paired_idioms.paired(mask, pe_aug, po_aug, h)
+    assert torch.equal(out[:, :h], paired_fwd(p4, mask, scales).t())
+    _, ctT, sc = probe_paired_bwd_idioms.device_inputs(cuda_device, k=k, n=n, h=h, seed=k)
+    d = paired_bwd(ctT, mask, probe_paired_bwd_idioms.as_backward(sc), None, torch.bfloat16)
+    de, do = probe_paired_bwd_idioms.paired_bwd(mask, ctT, sc)
+    assert torch.equal(de, d[0]) and torch.equal(do, d[1])
 
 
 def test_probe_paired_idioms_kernel_meets_the_numpy_oracle(cuda_device):
@@ -970,6 +1007,11 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
         probe_paired_idioms.paired(m8, aug, aug, h=65)
     with pytest.raises(ValueError):
         probe_paired_idioms.paired(m8, aug, aug.cpu())
+    with pytest.raises(ValueError, match="kb"):
+        probe_paired_idioms.paired(m8, aug, aug, h=8, kb=0)
+    off = torch.zeros(1 + aug.numel(), dtype=torch.bfloat16, device=d)[1:].view(aug.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        probe_paired_idioms.paired(m8, off, aug, h=8)
 
 
 def test_cli_on_the_card_launches_the_paired_kernels(cuda_device, tmp_path):
