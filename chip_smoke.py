@@ -111,14 +111,15 @@ Phases, each announced with the seconds elapsed since start:
    ``[964, 645, 645]`` int8 stack, K = 963, N = 645, H = 64; P1 and P4
    also at K = 4): each kernel against its plain version (P5 bit for bit,
    P1-P3 within 1e-5 of the largest output, P4 by the bf16 rule), two
-   calls bitwise equal, P1's and P4's numpy oracles; then, launch
-   counters set to 0, CUDA-event times of each kernel, its plain version
-   and, for P5, ``torch.sum``, with bounds; K1's phase-4 time (the sweep
-   design) is printed beside P3's parts (the former WMMA design, at the
-   relations a block that design took).  P1 and P4 run the paired sweep
-   (P1 at the schedule's cut and at one relation a block); P2 and P3 the
-   former WMMA design.  P6's launches are those of its timing in phase 11.
-   P1's and P4's library call is ``torch.bmm``, one a half, at their
+   calls bitwise equal, P1's and P4's numpy oracles, P2's ``both`` and
+   P3's ``two_dots`` bit for bit against K1/K2 on the same inputs, and
+   K1-K4's registers beside the parent tree's; then, launch counters set
+   to 0, CUDA-event times of each kernel, its plain version and, for P5,
+   ``torch.sum``, with bounds; K1's phase-4 time is printed beside P3's
+   parts.  P1-P4 run the paired sweep (P1 at the schedule's cut and at one
+   relation a block; P2 and P3 on parts policies at the schedule's cut and
+   at kb relations a block).  P6's launches are those of its timing in
+   phase 11.  P1-P4's library call is ``torch.bmm``, one a half, at their
    shape;
 19. framework shell: ``python -m decagon_tpu_torch.cli`` as a user runs it,
    in-process on the card: a config file for the dummy dataset (500
@@ -2078,19 +2079,25 @@ PROBES = (
 )
 PROBE_REPS = 3
 # Probes whose head case has a library call: two torch.bmm at their shape.
-BMM_PROBES = ("probe_paired_idioms", "probe_paired_bwd_idioms")
+BMM_PROBES = ("probe_paired_parts", "probe_paired_orient", "probe_paired_idioms",
+              "probe_paired_bwd_idioms")
+# The sweep kernels' registers a thread on the tree these probes were
+# redesigned from (K1/K2, K3/K4; ``-Xptxas -v`` on an H100 build): the
+# probes' policies must leave them as they were.
+PARENT_REGISTERS = {"fwd": 122, "bwd": 128}
 
 
 def probes(device, seed, paired_rows):
     """P1-P5 at the JAX probes' shapes: each kernel against its plain
     version (P5 bit for bit, the others by their stated rules) and two
-    calls bitwise equal, P1's and P4's numpy oracles at K = 4; then, with
-    the launch counters set to 0, each probe's timing path (CUDA events:
-    kernel, plain version, ``torch.sum`` for P5), read just after.
-    Returns the launch counts, each probe's rows, and the case that heads
-    each probe's kernel entry (the int8 read at kb 2 beside ``torch.sum``,
-    K1's work at kb 4, the TPU probes' K = 963 shapes, P1 at the
-    schedule's cut)."""
+    calls bitwise equal, P1's and P4's numpy oracles at K = 4, P2's
+    ``both`` and P3's ``two_dots`` against K1/K2 on the same inputs (bit
+    for bit); then, with the launch counters set to 0, each probe's timing
+    path (CUDA events: kernel, plain version, ``torch.sum`` for P5), read
+    just after.  Returns the launch counts, each probe's rows, and the case
+    that heads each probe's kernel entry (the int8 read at kb 2 beside
+    ``torch.sum``, K1's work at the schedule's cut, the TPU probes' K = 963
+    shapes)."""
     import torch
 
     from decagon_tpu_torch.ops import cuda_build
@@ -2109,7 +2116,6 @@ def probes(device, seed, paired_rows):
     m16 = m8.to(torch.bfloat16)
     p4 = torch.randn((2, p3.K, p3.H, p3.N), generator=g, device=device).to(torch.bfloat16)
     sc = p2.make_scales(device, seed, kpad=m8.shape[0], n=p3.N)
-    k1 = p3.k1_kb(p3.K, p3.N, p3.H, device)
     small4 = p4b.numpy_inputs(seed=seed)
     small1 = p1.numpy_inputs(seed=seed)
     on = [torch.from_numpy(a).to(device) for a in (small4[0], small4[1].T.copy(), small4[2])]
@@ -2122,10 +2128,10 @@ def probes(device, seed, paired_rows):
             torch.from_numpy(small1[6]).to(device, torch.bfloat16))
     groups = {
         "probe_int8_bw": p5.variants(m8, m16, p5.padded(m8)),
-        "probe_paired_parts": p3.variants(m8, p4, kbs=(4, 8, k1)),
+        "probe_paired_parts": p3.variants(m8, p4, kbs=(4, 8, None)),
         "probe_paired_orient": p2.variants(
-            m8, p4, sc, m16, sweep=(("both", (2, 4, 8)), ("xe_only", (4,)), ("xo_only", (4,)),
-                                    ("small_t", (4, 8)))),
+            m8, p4, sc, m16, sweep=(("both", (2, 4, 8, None)), ("xe_only", (4, None)),
+                                    ("xo_only", (4, None)), ("small_t", (4, None)))),
         "probe_paired_bwd_idioms": [p4b.variant(*on), p4b.variant(*full4)],
         "probe_paired_idioms": [p1.variant(*aug4, h=p1.H),
                                 p1.variant(m963, pe_aug, po_aug, h=p1.H, kb=1),
@@ -2139,6 +2145,31 @@ def probes(device, seed, paired_rows):
     if not (err4 < 2e-2 and err1 < 2e-2):
         raise AssertionError("a probe misses its numpy oracle")
     checked = {name: {v.key: probing.check(v) for v in vs} for name, vs in groups.items()}
+    # P2's both (int8) and P3's two_dots are K1/K2 at unit column scales:
+    # the same sweep at the same cut, the same bits.
+    from decagon_tpu_torch.ops.spmm_paired import kernel_info, paired_fwd
+
+    k1_same = {
+        "both_i8_sched": torch.equal(p2.paired_orient(m8, p4, sc, "both"),
+                                     paired_fwd(p4, m963, p2.as_forward_scales(sc, p3.K))),
+        "two_dots_sched": torch.equal(
+            p3.paired_parts(m8, p4, "two_dots"),
+            paired_fwd(p4, m963, torch.ones((p3.K, 4, p3.N), device=device))),
+    }
+    log(f"P2 both and P3 two_dots against K1/K2 on the same inputs, bit for bit: "
+        f"{json.dumps(k1_same)}")
+    if not all(k1_same.values()):
+        raise AssertionError("P2's both or P3's two_dots differs from K1/K2")
+    regs = {which: kernel_info(which, device.index or 0)["registers"] for which in ("fwd", "bwd")}
+    log(f"K1-K4 registers a thread {json.dumps(regs)} (parent {json.dumps(PARENT_REGISTERS)}); "
+        "the probes' instantiations: " + json.dumps({
+            f"{mode}_{'bf16' if bf else 'i8'}_s{st}": dict(p3.probe_info(code, bf, st,
+                                                                         device.index or 0))
+            for mode, code, bf, st in (("both", probing.BOTH, False, 3),
+                                       ("both", probing.BOTH, True, 3),
+                                       ("both", probing.BOTH, True, 2),
+                                       ("small_t", probing.SMALL_T, False, 3),
+                                       ("dma", probing.DMA, False, 3))}))
     cuda_build.reset_launches()
     timed = {name: [probing.time_variant(v, PROBE_REPS, plain_reps=1) for v in vs]
              for name, vs in groups.items()}
@@ -2150,12 +2181,12 @@ def probes(device, seed, paired_rows):
         rows[name] = [{**checked[name][t["case"]], **t} for t in vs]
         for r in rows[name]:
             log(f"{name} {json.dumps(r)}")
-    heads = {"probe_int8_bw": "sum_int8_kb2", "probe_paired_parts": "two_dots_kb4",
-             "probe_paired_orient": "both_i8_kb4",
+    heads = {"probe_int8_bw": "sum_int8_kb2", "probe_paired_parts": "two_dots_sched",
+             "probe_paired_orient": "both_i8_sched",
              "probe_paired_bwd_idioms": f"paired_bwd_K{p4b.K_FULL}",
              "probe_paired_idioms": f"paired_K{p1.K_FULL}_sched"}
-    # P1's and P4's library call: K1's and K3's yardstick, one torch.bmm a
-    # half, at their shape (K = 963, N = 645, H = 64, bf16 operands).
+    # P1-P4's library call: K1's and K3's yardstick, one torch.bmm a half,
+    # at their shape (K = 963, N = 645, H = 64, bf16 operands).
     q = torch.randn((2, p1.K_FULL, p1.H, p1.N), generator=g, device=device).to(torch.bfloat16)
     bmm_ms = bmm_library_ms(m963, q[0], q[1])
     del q
@@ -2165,10 +2196,12 @@ def probes(device, seed, paired_rows):
                 r["library_ms"] = bmm_ms
     k1_ms = {r["case"]: r["ms"] for r in paired_rows if r["case"].startswith("(1,1)")}
     parts = {r["case"]: r["ms"] for r in rows["probe_paired_parts"]}
-    log(f"K1, the sweep design, at (1,1), phase 4: {json.dumps(k1_ms)} (layer 1 scales f32 "
-        f"operands, layer 2 bf16); beside it P3, the former WMMA design at its {k1} "
-        "relations a block, bf16 operands, no scales: "
-        + ", ".join(f"{m} {parts[f'{m}_kb{k1}']:.3f}" for m in p3.MODES)
+    orient = {r["case"]: r["ms"] for r in rows["probe_paired_orient"]}
+    log(f"K1, phase 4, at (1,1): {json.dumps(k1_ms)} (layer 1 scales f32 operands, layer 2 "
+        "bf16); beside it P3, the same sweep in parts at the schedule's cut, bf16 operands, "
+        "no scales: " + ", ".join(f"{m} {parts[f'{m}_sched']:.3f}" for m in p3.MODES)
+        + " ms; P2 at the schedule's cut: " + ", ".join(
+            f"{c} {orient[c]:.3f}" for c in orient if c.endswith(("_sched", "_sched_s2")))
         + f" ms; P5 int8 read: {rows['probe_int8_bw'][0]['ms']:.3f} ms")
     p1_ms = {r["case"]: r["ms"] for r in rows["probe_paired_idioms"]}
     log(f"P1 on the sweep: {json.dumps(p1_ms)}; P4 on K3's sweep: "
@@ -2338,7 +2371,9 @@ def framework_shell(device, seed):
 
 
 # Kernels whose first port was redesigned for the card (marked in the report).
-REDESIGNED = ("paired_fwd", "paired_bwd", "sddmm", "sddmm_bf16", "spmm_tiled", "adam")
+REDESIGNED = ("paired_fwd", "paired_bwd", "sddmm", "sddmm_bf16", "spmm_tiled", "adam",
+              "probe_paired_parts", "probe_paired_orient", "probe_paired_bwd_idioms",
+              "probe_paired_idioms")
 
 
 def kernel_entry(name, source, replaces, launches, rows, library_rows=None, cases=None):

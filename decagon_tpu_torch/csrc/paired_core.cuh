@@ -51,6 +51,18 @@
 // past N zero-filled, into a swizzled tile [64 c][64 h] whose B fragments
 // come with ldmatrix.trans.
 //
+// Parts.  A compile-time policy (``Parts`` and its variants) says what a
+// step does: which raw mask tiles and operand tiles it stages, whether the
+// mask is converted, which halves run products, whether the direct half
+// reads the transposed tile (one orientation against both operands), and
+// whether one tile feeds both halves (``SINGLE``: the transposed half reads
+// the direct raw tile's columns, its operand tile lies at the node tile
+// n0 and its outputs are the chunk's nodes), with the mask's element type
+// (int8, or bf16 staged at two bytes a cell: nine 16-byte chunks a tile
+// row, no conversion but the window's extraction) and the ring's depth.
+// The default is K1-K4's; the probes (probe_paired.cu, probe_paired_sweep.cu)
+// take the sweep apart with the others.
+//
 // Sums are f32 in a fixed order (chunk by chunk, relation by relation),
 // and a block owns its outputs, so two calls give equal bits.
 
@@ -76,12 +88,44 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * TILE_BYTES;
 
 enum class Operands { PLANES, NODE_MAJOR };
 
+// What a sweep step does (the header comment's "Parts"): K1-K4's.
+struct Parts {
+  using Mask = int8_t;                // mask element: int8_t or __nv_bfloat16
+  static constexpr int RING = STAGES; // stages of the cp.async ring
+  static constexpr bool RAW_D = true; // stage the direct tile B[n0 + r, c0 + c]
+  static constexpr bool RAW_T = true; // stage the transposed tile B[c0 + r, n0 + c]
+  static constexpr bool OPND_D = true, OPND_T = true;  // stage qd / qt
+  static constexpr bool CONVERT = true;                // convert the mask tiles
+  static constexpr bool PROD_D = true, PROD_T = true;  // products of each half
+  static constexpr bool D_READS_T = false;  // the direct half reads the transposed tile
+  static constexpr bool SINGLE = false;     // one direct tile feeds both halves
+  static constexpr bool SINK = false;       // fold staged words into sweep's result
+};
+
+// The shared-memory layout of a policy: a stage holds the raw tiles it
+// stages, then the operand tiles [qd][qt]; the two conversion tiles follow
+// the ring.  Parts' values are the constants above.
+template <class P>
+struct Layout {
+  static constexpr int ESZ = sizeof(typename P::Mask);
+  static constexpr int CHUNKS = (64 * ESZ) / 16 + 1;  // 16-byte chunks a raw row
+  static constexpr int RAW_LD = 16 * CHUNKS;
+  static constexpr int RAW_BYTES = TM * RAW_LD;
+  static constexpr int RAW_T_AT = P::RAW_D ? RAW_BYTES : 0;
+  static constexpr int OPND_AT = (int(P::RAW_D) + int(P::RAW_T)) * RAW_BYTES;
+  static constexpr int STAGE_BYTES = OPND_AT + 2 * TILE_BYTES;
+  static constexpr int SMEM_BYTES = P::RING * STAGE_BYTES + 2 * TILE_BYTES;
+};
+static_assert(Layout<Parts>::RAW_LD == RAW_LD && Layout<Parts>::STAGE_BYTES == STAGE_BYTES &&
+                  Layout<Parts>::SMEM_BYTES == SMEM_BYTES,
+              "K1-K4's layout");
+
 // One block's work, decoded from the grid: blockIdx.x the node tile,
 // blockIdx.y = relation split * con_splits + contraction split (also the
 // index of the block's partial), blockIdx.z the hidden slice.  The ranges
 // are those of ``ops/spmm_paired.PairedSchedule.ranges``.
 struct Sweep {
-  const int8_t* mask;               // [K, N, N]
+  const int8_t* mask;               // [K, N, N] (a bf16 mask's bytes, read as Parts::Mask)
   const unsigned char* begin;       // the mask's first byte
   const unsigned char* end;         // one past its last
   const __nv_bfloat16* qd;          // direct tile's operands: planes [K][Hq][Npad]
@@ -93,16 +137,17 @@ struct Sweep {
   int k0, k1, ch0, ch1;             // relations and chunks of this block
 };
 
-__device__ __forceinline__ Sweep block_sweep(const int8_t* mask, int K, int N, int Hq,
+template <class M = int8_t>
+__device__ __forceinline__ Sweep block_sweep(const M* mask, int K, int N, int Hq,
                                              const __nv_bfloat16* qd,
                                              const __nv_bfloat16* qt, int rel_splits,
                                              int con_splits) {
   Sweep s;
   const int chunks = (N + TK - 1) / TK;
   const int rs = blockIdx.y / con_splits, cs = blockIdx.y % con_splits;
-  s.mask = mask;
+  s.mask = reinterpret_cast<const int8_t*>(mask);
   s.begin = reinterpret_cast<const unsigned char*>(mask);
-  s.end = s.begin + static_cast<size_t>(K) * N * N;
+  s.end = s.begin + static_cast<size_t>(K) * N * N * sizeof(M);
   s.qd = qd;
   s.qt = qt;
   s.N = N;
@@ -164,9 +209,10 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ int swz(int r, int q) { return r * 128 + ((q ^ (r & 7)) << 4); }
 
 // Copy the aligned 16-byte chunk ``q`` covering mask row ``row`` from
-// column ``col`` (64 bytes) into ``dst``; zeros for rows past N.
-__device__ __forceinline__ void stage_chunk(unsigned char* dst, const Sweep& s,
-                                            const int8_t* bk, int row, int col, int q) {
+// column ``col`` (64 elements) into ``dst``; zeros for rows past N.
+template <class M>
+__device__ __forceinline__ void stage_chunk(unsigned char* dst, const Sweep& s, const M* bk,
+                                            int row, int col, int q) {
   if (row >= s.N) {
     cp_async16(dst, s.begin, 0);
     return;
@@ -184,30 +230,39 @@ __device__ __forceinline__ void stage_chunk(unsigned char* dst, const Sweep& s,
 }
 
 // Start the copies of flattened step ``it`` (relation k0 + it / nc, chunk
-// ch0 + it % nc) into stage ``st``: [raw direct][raw transposed][qd][qt],
-// the operand tiles straight from the planes ([h][c]) or the node-major
-// rows ([c][h]).
-template <Operands OP = Operands::PLANES>
+// ch0 + it % nc) into stage ``st``: the raw tiles ``P`` stages, then
+// [qd][qt], the operand tiles straight from the planes ([h][c]) or the
+// node-major rows ([c][h]).  With ``P::SINGLE`` qt's tile lies at the node
+// tile n0, not the chunk.
+template <Operands OP = Operands::PLANES, class P = Parts>
 __device__ __forceinline__ void stage(const Sweep& s, int it, unsigned char* st, int tid) {
+  using L = Layout<P>;
+  using M = typename P::Mask;
   const int nc = s.ch1 - s.ch0;
   const int k = s.k0 + it / nc;
   const int c0 = (s.ch0 + it % nc) * TK;
-  const int8_t* bk = s.mask + static_cast<size_t>(k) * s.N * s.N;
-  for (int idx = tid; idx < TM * 5; idx += THREADS) {
-    const int r = idx / 5, q = idx % 5;
-    stage_chunk(st + r * RAW_LD + 16 * q, s, bk, s.n0 + r, c0, q);
-    stage_chunk(st + RAW_BYTES + r * RAW_LD + 16 * q, s, bk, c0 + r, s.n0, q);
+  const M* bk = reinterpret_cast<const M*>(s.mask) + static_cast<size_t>(k) * s.N * s.N;
+  if constexpr (P::RAW_D || P::RAW_T) {
+    for (int idx = tid; idx < TM * L::CHUNKS; idx += THREADS) {
+      const int r = idx / L::CHUNKS, q = idx % L::CHUNKS;
+      if constexpr (P::RAW_D) stage_chunk(st + r * L::RAW_LD + 16 * q, s, bk, s.n0 + r, c0, q);
+      if constexpr (P::RAW_T)
+        stage_chunk(st + L::RAW_T_AT + r * L::RAW_LD + 16 * q, s, bk, c0 + r, s.n0, q);
+    }
   }
-  unsigned char* td = st + 2 * RAW_BYTES;
+  unsigned char* td = st + L::OPND_AT;
   unsigned char* tt = td + TILE_BYTES;
   if constexpr (OP == Operands::PLANES) {
-    const int per = s.nh * 16 * 8;  // 16-byte chunks of one operand tile
-    const size_t plane = (static_cast<size_t>(k) * s.Hq + s.h0) * s.Npad + c0;
-    for (int idx = tid; idx < per; idx += THREADS) {
-      const int h = idx >> 3, q = idx & 7;
-      const size_t off = plane + static_cast<size_t>(h) * s.Npad + 8 * q;
-      cp_async16(td + swz(h, q), s.qd + off);
-      cp_async16(tt + swz(h, q), s.qt + off);
+    if constexpr (P::OPND_D || P::OPND_T) {
+      const int per = s.nh * 16 * 8;  // 16-byte chunks of one operand tile
+      const size_t plane = (static_cast<size_t>(k) * s.Hq + s.h0) * s.Npad + c0;
+      const size_t plane_t = P::SINGLE ? plane - c0 + s.n0 : plane;
+      for (int idx = tid; idx < per; idx += THREADS) {
+        const int h = idx >> 3, q = idx & 7;
+        const size_t off = static_cast<size_t>(h) * s.Npad + 8 * q;
+        if constexpr (P::OPND_D) cp_async16(td + swz(h, q), s.qd + plane + off);
+        if constexpr (P::OPND_T) cp_async16(tt + swz(h, q), s.qt + plane_t + off);
+      }
     }
   } else {
     for (int idx = tid; idx < TK * 8; idx += THREADS) {
@@ -225,8 +280,8 @@ __device__ __forceinline__ void stage(const Sweep& s, int it, unsigned char* st,
   }
 }
 
-// The 16 bytes at byte ``pos`` (any alignment, pos <= 63) of a raw row,
-// from two aligned 16-byte loads.
+// The 16 bytes at byte ``pos`` (any alignment, pos + 16 <= the row's
+// staged bytes) of a raw row, from two aligned 16-byte loads.
 __device__ __forceinline__ uint4 window16(const unsigned char* row, int pos) {
   const uint4* p = reinterpret_cast<const uint4*>(row) + (pos >> 4);
   const uint4 a = p[0], b = p[1];
@@ -266,33 +321,67 @@ __device__ __forceinline__ void convert16(unsigned char* tile, int r, int q0,
   *reinterpret_cast<uint4*>(tile + swz(r, q0 + 1)) = make_uint4(c.x, c.y, d.x, d.y);
 }
 
-// The warp's own part of this chunk's bf16 mask tile: the direct half
-// converts its 16 rows (each lane half a row), the transposed half its 16
-// columns of all 64 rows (each lane two rows).
-__device__ __forceinline__ void convert(const Sweep& s, const int8_t* bk, int c0,
+// ``n`` elements (16 or 32) of a raw row from element ``e`` into tile row
+// ``r`` at logical chunk q0 on: int8 converted, bf16 extracted as it lies.
+// ``off`` is the row's first byte's offset within 16.
+template <class M, int n>
+__device__ __forceinline__ void convert_run(unsigned char* tile, int r, int q0,
+                                            const unsigned char* row, int off, int e) {
+  if constexpr (sizeof(M) == 1) {
+#pragma unroll
+    for (int j = 0; j < n / 16; ++j) convert16(tile, r, q0 + 2 * j, row, off + e + 16 * j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < n / 8; ++j)
+      *reinterpret_cast<uint4*>(tile + swz(r, q0 + j)) = window16(row, off + 2 * e + 16 * j);
+  }
+}
+
+// The byte offset within 16 of mask row ``row`` at column ``col``.
+template <class M>
+__device__ __forceinline__ int row_offset(const Sweep& s, const M* bk, int row, int col) {
+  return static_cast<int>(
+      reinterpret_cast<uintptr_t>(bk + static_cast<size_t>(row) * s.N + col) & 15);
+}
+
+// The warp's own part of this chunk's bf16 mask tile.  A half that reads
+// rows (the direct half) converts its 16 rows of the direct tile (each
+// lane half a row); a half that reads columns (the transposed half, and
+// the direct half under ``D_READS_T``) its 16 columns of all 64 rows of the
+// transposed tile (each lane two rows), or of the direct tile under
+// ``SINGLE``.  A half whose tile is not staged converts nothing.
+template <class P = Parts>
+__device__ __forceinline__ void convert(const Sweep& s, const int8_t* bk8, int c0,
                                         const unsigned char* raw, unsigned char* tile,
                                         int half, int rg, int lane) {
-  if (half == 0) {
-    const int r = 16 * rg + (lane >> 1), hc = lane & 1;
-    const int off = static_cast<int>(
-        reinterpret_cast<uintptr_t>(bk + static_cast<size_t>(s.n0 + r) * s.N + c0) & 15);
-    const unsigned char* row = raw + r * RAW_LD;
-    convert16(tile, r, 4 * hc, row, off + 32 * hc);
-    convert16(tile, r, 4 * hc + 2, row, off + 32 * hc + 16);
-  } else {
+  using L = Layout<P>;
+  using M = typename P::Mask;
+  const M* bk = reinterpret_cast<const M*>(bk8);
+  const bool by_rows = half == 0 && !P::D_READS_T;
+  constexpr bool COLS_STAGED = P::SINGLE ? P::RAW_D : P::RAW_T;
+  if (by_rows) {
+    if constexpr (P::RAW_D) {
+      const int r = 16 * rg + (lane >> 1), hc = lane & 1;
+      const int off = row_offset(s, bk, s.n0 + r, c0);
+      convert_run<M, 32>(tile, r, 4 * hc, raw + r * L::RAW_LD, off, 32 * hc);
+    }
+  } else if constexpr (COLS_STAGED) {
+    // The tile's rows are the contraction: the chunk's mask rows, or the
+    // node tile's under SINGLE (the direct tile read by columns).
+    const unsigned char* base = P::SINGLE ? raw : raw + L::RAW_T_AT;
+    const int row0 = P::SINGLE ? s.n0 : c0, col0 = P::SINGLE ? c0 : s.n0;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int r = lane + 32 * e;
-      const int off = static_cast<int>(
-          reinterpret_cast<uintptr_t>(bk + static_cast<size_t>(c0 + r) * s.N + s.n0) & 15);
-      convert16(tile, r, 2 * rg, raw + RAW_BYTES + r * RAW_LD, off + 16 * rg);
+      const int off = row_offset(s, bk, row0 + r, col0);
+      convert_run<M, 16>(tile, r, 2 * rg, base + r * L::RAW_LD, off, 16 * rg);
     }
   }
 }
 
 // acc[j] (columns 8j..8j+7 of the slice) += this chunk's product for the
 // warp's 16 nodes.
-template <Operands OP = Operands::PLANES>
+template <Operands OP = Operands::PLANES, class P = Parts>
 __device__ __forceinline__ void products(const unsigned char* tile, const unsigned char* opnd,
                                          float (&acc)[8][4], int half, int rg, int lane,
                                          int nh) {
@@ -300,7 +389,7 @@ __device__ __forceinline__ void products(const unsigned char* tile, const unsign
 #pragma unroll
   for (int kk = 0; kk < TK / 16; ++kk) {
     uint32_t a[4];
-    if (half == 0) {
+    if (half == 0 && !P::D_READS_T) {
       const int r = 16 * rg + (lane & 15);
       ldmatrix_x4(a, t + swz(r, 2 * kk + (lane >> 4)));
     } else {
@@ -326,41 +415,55 @@ __device__ __forceinline__ void products(const unsigned char* tile, const unsign
 
 // The sweep.  ``epi.relation(k, half, rg, lane, acc)`` runs at each
 // relation's last chunk with the warp's accumulators (half 0: acc_D,
-// half 1: acc_T), which are zeroed after.  On return every copy has
-// landed and every thread has passed a barrier, so the caller may reuse
-// the shared memory.
-template <Operands OP = Operands::PLANES, class Epi>
-__device__ __forceinline__ void sweep(const Sweep& s, Epi& epi, unsigned char* smem) {
+// half 1: acc_T) of each half that runs products, which are zeroed after.
+// On return every copy has landed and every thread has passed a barrier,
+// so the caller may reuse the shared memory.  Returns 0, or under
+// ``P::SINK`` a word of every stage the thread saw land, folded (a policy
+// that stages without converting has nothing else that reads the copies).
+// A policy that stages nothing runs its products on zeroed shared memory.
+template <Operands OP = Operands::PLANES, class P = Parts, class Epi>
+__device__ __forceinline__ uint32_t sweep(const Sweep& s, Epi& epi, unsigned char* smem) {
+  using L = Layout<P>;
+  constexpr int RING = P::RING;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int half = warp >> 2, rg = warp & 3;
   const int nc = s.ch1 - s.ch0;
   const int steps = (s.k1 - s.k0) * nc;
-  unsigned char* tile = smem + STAGES * STAGE_BYTES + half * TILE_BYTES;
+  const bool prod = half == 0 ? P::PROD_D : P::PROD_T;
+  unsigned char* tile = smem + RING * L::STAGE_BYTES + half * TILE_BYTES;
+  uint32_t sink = 0;
   float acc[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  if constexpr (!(P::RAW_D || P::RAW_T || P::OPND_D || P::OPND_T)) {
+    for (int i = tid; i < L::SMEM_BYTES / 16; i += THREADS)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  }
 
 #pragma unroll
-  for (int it = 0; it < STAGES - 1; ++it) {
-    if (it < steps) stage<OP>(s, it, smem + it * STAGE_BYTES, tid);
+  for (int it = 0; it < RING - 1; ++it) {
+    if (it < steps) stage<OP, P>(s, it, smem + it * L::STAGE_BYTES, tid);
     cp_async_commit();
   }
   int k = s.k0, ci = 0;  // relation and chunk (within the block's range) of step it
   for (int it = 0; it < steps; ++it) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of step it have landed
-    __syncthreads();              // everyone's; and step it - 1 is consumed
-    const int nx = it + STAGES - 1;
-    if (nx < steps) stage<OP>(s, nx, smem + (nx % STAGES) * STAGE_BYTES, tid);
+    cp_async_wait<RING - 2>();  // this thread's copies of step it have landed
+    __syncthreads();            // everyone's; and step it - 1 is consumed
+    const int nx = it + RING - 1;
+    if (nx < steps) stage<OP, P>(s, nx, smem + (nx % RING) * L::STAGE_BYTES, tid);
     cp_async_commit();
-    const unsigned char* st = smem + (it % STAGES) * STAGE_BYTES;
-    const int8_t* bk = s.mask + static_cast<size_t>(k) * s.N * s.N;
-    convert(s, bk, (s.ch0 + ci) * TK, st, tile, half, rg, lane);
+    const unsigned char* st = smem + (it % RING) * L::STAGE_BYTES;
+    if constexpr (P::SINK) sink ^= reinterpret_cast<const uint32_t*>(st)[tid];
+    const int8_t* bk = s.mask +
+        static_cast<size_t>(k) * s.N * s.N * sizeof(typename P::Mask);
+    if constexpr (P::CONVERT) convert<P>(s, bk, (s.ch0 + ci) * TK, st, tile, half, rg, lane);
     __syncwarp();
-    products<OP>(tile, st + 2 * RAW_BYTES + half * TILE_BYTES, acc, half, rg, lane, s.nh);
+    if (prod)
+      products<OP, P>(tile, st + L::OPND_AT + half * TILE_BYTES, acc, half, rg, lane, s.nh);
     if (++ci == nc) {
-      epi.relation(k, half, rg, lane, acc);
+      if (prod) epi.relation(k, half, rg, lane, acc);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -371,6 +474,7 @@ __device__ __forceinline__ void sweep(const Sweep& s, Epi& epi, unsigned char* s
   }
   cp_async_wait<0>();
   __syncthreads();
+  return sink;
 }
 
 }  // namespace paired

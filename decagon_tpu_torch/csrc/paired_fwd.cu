@@ -62,40 +62,6 @@
 
 namespace {
 
-__device__ __forceinline__ float as_f32(float v) { return v; }
-__device__ __forceinline__ float as_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// q[t][k][h][j] = bf16((p4[t,k,h,j] * ds[k,t,j]) * scales[k,2+t,j]) for
-// h < H and j < N, else 0.  Grid: x walks the 2 K Hq rows, y the row's
-// 16-byte groups of eight columns.
-template <typename P>
-__global__ void fwd_operands_kernel(const P* __restrict__ p4, const float* __restrict__ scales,
-                                    const float* __restrict__ ds,
-                                    __nv_bfloat16* __restrict__ q, int K, int N, int H, int Hq,
-                                    int Npad) {
-  const int row = blockIdx.x;  // (t * K + k) * Hq + h
-  const int h = row % Hq, tk = row / Hq, k = tk % K, t = tk / K;
-  const int j0 = 8 * (blockIdx.y * blockDim.x + threadIdx.x);
-  if (j0 >= Npad) return;
-  const P* src = p4 + (static_cast<size_t>(tk) * H + h) * N;
-  const float* b = scales + (static_cast<size_t>(k) * 4 + 2 + t) * N;
-  const float* d = ds == nullptr ? nullptr : ds + (static_cast<size_t>(k) * 2 + t) * N;
-  __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int j = j0 + e;
-    float f = 0.f;
-    if (h < H && j < N) {
-      f = as_f32(src[j]);
-      if (d != nullptr) f *= d[j];
-      f *= b[j];
-    }
-    v[e] = __float2bfloat16_rn(f);
-  }
-  *reinterpret_cast<uint4*>(q + static_cast<size_t>(row) * Npad + j0) =
-      *reinterpret_cast<const uint4*>(v);
-}
-
 // out[x] = sum over splits of partial[s, x], in split order.
 __global__ void sum_splits_kernel(const float* __restrict__ partial,
                                   float* __restrict__ out, int splits,
@@ -112,7 +78,7 @@ int grid_blocks(size_t count) {
   return static_cast<int>((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
 }
 
-constexpr auto MainSweep = paired_fwd_kernel<WholeSweep>;
+constexpr auto MainSweep = paired_fwd_kernel<>;
 
 // P1's row scales: bf16 column H of the node-major rows pe / po [K][N][AUG].
 constexpr int AUG = 128;
@@ -181,16 +147,9 @@ int dt_paired_fwd(const void* mask, const void* p4, int p_is_bf16, const void* s
   if (!valid_cut(K, N, rel_splits, con_splits) || H < 1 || (H + HS - 1) / HS > 65535 ||
       rows > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const dim3 pass(static_cast<unsigned>(rows), (Npad / 8 + 127) / 128);
   __nv_bfloat16* qb = static_cast<__nv_bfloat16*>(q);
   const float* sc = static_cast<const float*>(scales);
-  const float* dsf = static_cast<const float*>(ds);
-  if (p_is_bf16)
-    fwd_operands_kernel<<<pass, 128, 0, st>>>(static_cast<const __nv_bfloat16*>(p4), sc, dsf,
-                                              qb, K, N, H, Hq, Npad);
-  else
-    fwd_operands_kernel<<<pass, 128, 0, st>>>(static_cast<const float*>(p4), sc, dsf, qb, K,
-                                              N, H, Hq, Npad);
+  operand_pass(p4, p_is_bf16, sc, static_cast<const float*>(ds), qb, K, N, H, Hq, Npad, st);
   float* part = static_cast<float*>(partial);
   cudaError_t err =
       sweep_launch(MainSweep, mask, qb, sc, part, K, N, H, rel_splits, con_splits, st);

@@ -168,10 +168,12 @@ def library() -> ctypes.CDLL:
             ]
             lib.dt_probe_column_sum.restype = _I
             lib.dt_probe_column_sum.argtypes = [_P, _I, _L, _I, _I, _I, _P, _P, _P]
-            lib.dt_probe_paired.restype = _I
-            lib.dt_probe_paired.argtypes = [
-                _P, _I, _P, _P, _L, _P, _I, _P, _P, _I, _I, _I, _I, _P,
+            lib.dt_probe_parts.restype = _I
+            lib.dt_probe_parts.argtypes = [
+                _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
             ]
+            lib.dt_probe_parts_info.restype = _I
+            lib.dt_probe_parts_info.argtypes = [_I, _I, _I, _P]
             lib.dt_probe_paired_sweep.restype = _I
             lib.dt_probe_paired_sweep.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
             lib.dt_error_string.restype = ctypes.c_char_p

@@ -71,9 +71,6 @@ from decagon_tpu_torch.train.step import (
     value_and_grad,
 )
 
-# spmm_impl values of the sharded encoder: the JAX package's dispatch
-# ("auto", "dense", "xla", "pallas") and K6's plain version on any device.
-SHARDED_IMPLS = ("auto", "dense", "xla", "pallas", "pallas_ref")
 _LEVELS = ("enc1", "enc2")
 
 
@@ -276,23 +273,24 @@ def encode_sharded(
     ``{"0": [N_0, H2], ...}``, equal on every rank.  Same math as
     ``models/encoder.encode``.
 
-    ``spmm_impl``: "auto" (the dense block where built, else K6 on CUDA
-    where the slot has its CSR, else the COO stream), "dense" (the dense
-    block where built, else the COO stream), "xla" (the COO stream),
-    "pallas" (K6 where the slot has its CSR: the kernel for CUDA tensors,
-    its plain version for CPU ones) or "pallas_ref" (K6's plain version on
-    any device).  ``sharded_keys``: edge types whose enc stacks arrive as
-    this rank's ``[k_loc, ...]`` relation blocks; they need the dense
-    block (``ValueError`` otherwise).  ``overlap``: issue every edge
+    ``spmm_impl``, routed as the JAX mesh routes it: "auto" (the dense
+    block where built, else K6 on CUDA where the slot has its CSR, else the
+    COO stream), "dense" (the dense block where built, else the COO
+    stream), "pallas" (K6 where the slot has its CSR: the kernel for CUDA
+    tensors, its plain version for CPU ones), "pallas_ref" (K6's plain
+    version on any device); every other name of the port ("xla", "paired",
+    "paired_ref", "dense_factored", "fused", "fused_pallas",
+    "fused_pallas_ref") takes the COO stream, since the slot has no pair
+    masks, factored stacks or fused layout.  The interpret names raise
+    ``NotImplementedError`` and unknown ones ``ValueError``
+    (``check_spmm_impl``).  ``sharded_keys``: edge types whose enc stacks
+    arrive as this rank's ``[k_loc, ...]`` relation blocks; they need the
+    dense block (``ValueError`` otherwise).  ``overlap``: issue every edge
     type's aggregation and ``edge`` reduction before waiting for any, then
     every ``row`` gather before reading any; without it each edge type's
     exchange completes before the next one's projection (the control).
     Dropout as the module docstring says."""
-    if spmm_impl not in SHARDED_IMPLS:
-        check_spmm_impl(spmm_impl)
-        raise ValueError(
-            f"spmm_impl {spmm_impl!r} has no sharded form; the mesh takes {SHARDED_IMPLS}"
-        )
+    check_spmm_impl(spmm_impl)
     _check_mesh(graph, mesh)
     row_g, edge_g = mesh_groups(mesh)
     nr, ne = graph.mesh_shape

@@ -5,7 +5,8 @@ sweep design (``csrc/paired_core.cuh``, ``csrc/paired_fwd.cu``).
 
 ``sweep_variant(p4, mask, scales, ds, variant)`` runs the forward's sweep
 kernel alone (``dt_probe_paired_sweep``, ``csrc/probe_paired_sweep.cu``:
-the same sweep kernel, and its loop with a part switched off), cut by the same
+the same sweep kernel, on parts policies of ``paired_core.cuh`` that
+switch a part off), cut by the same
 ``paired_schedule`` as ``ops/spmm_paired.paired_fwd``, and sums its
 partials; each returns ``outT [H, N]`` f32:
 

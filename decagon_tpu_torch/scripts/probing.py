@@ -182,23 +182,9 @@ def require_card(name: str) -> Optional[torch.device]:
     return resolve_device("cuda")
 
 
-
-# Codes of ``dt_probe_paired``'s forward variants (``Mode`` in
-# ``csrc/probe_paired.cu``).
+# Codes of ``dt_probe_parts``'s modes (``Mode`` in ``csrc/probe_paired.cu``).
 DIRECT, TRANS, BOTH, M128, DMA, SMALL_T = 1, 2, 3, 4, 5, 6
 MAX_H = 64  # one hidden slice
-STRIP_MAX_N = 768  # small_t keeps a [N, 64] f32 strip in shared memory
-
-
-def wmma_relations_per_block(k: int, n: int, h: int, sms: int) -> int:
-    """The relations a block of K1's former WMMA design took (its split
-    rule, frozen here): enough (64-node tile, 64-column slice, split)
-    blocks to give every SM four, at most one split a relation.
-    ``csrc/probe_paired.cu`` copies that design, so P2 and P3 keep
-    measuring it at its own shapes."""
-    tiles = -(-n // 64) * -(-h // 64)
-    splits = max(1, min(k, -(-4 * sms // tiles)))
-    return -(-k // splits)
 
 
 def check_on(name: str, device: torch.device, **tensors) -> None:
@@ -210,29 +196,6 @@ def check_on(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {label} is on {t.device}, not {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
-
-
-def launch_paired(name: str, mask: torch.Tensor, pe: torch.Tensor, po: torch.Tensor,
-                  p_rel: int, sc: Optional[torch.Tensor], mode: int, k: int, n: int, h: int,
-                  kb: int) -> torch.Tensor:
-    """One call of ``dt_probe_paired`` (P2's and P3's kernels, with the
-    pass that adds the per-block partials in order): ``[h, n]`` f32,
-    counted under ``name``; the wrapper has checked the operands."""
-    from decagon_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.library()
-    splits = -(-k // kb)
-    with torch.cuda.device(mask.device):
-        partial = torch.empty((splits, h * n), dtype=torch.float32, device=mask.device)
-        out = torch.empty((h, n), dtype=torch.float32, device=mask.device)
-        status = lib.dt_probe_paired(
-            mask.data_ptr(), int(mask.dtype == torch.bfloat16), pe.data_ptr(), po.data_ptr(),
-            p_rel, 0 if sc is None else sc.data_ptr(), mode, partial.data_ptr(),
-            out.data_ptr(), k, n, h, kb, torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_build.check(status, name)
-    cuda_build.LAUNCHES[name] += 1
-    return out
 
 
 def spmm_cases(dg, params):

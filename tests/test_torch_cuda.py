@@ -848,15 +848,18 @@ def test_probe_int8_bw_kernel_matches_plain(cuda_device, shape):
         _probe_check(v, "probe_int8_bw")
 
 
-@pytest.mark.parametrize("kbs", [(1, 4, 8), (21,)], ids=["kb1-4-8", "kb21"])
+# P2 and P3 run the paired sweep on parts policies: every mode at ragged
+# shapes (no row a multiple of 16 bytes at N = 45, 70), at the schedule's
+# cut and at kb relations a block.
+@pytest.mark.parametrize("kbs", [(1, 4, 8), (None,)], ids=["kb1-4-8", "sched"])
 @pytest.mark.parametrize("k,n,h", [(9, 70, 16), (13, 130, 64), (5, 45, 24), (963, 645, 64)])
 def test_probe_paired_parts_kernel_matches_plain(cuda_device, k, n, h, kbs):
-    if k == 963 and kbs != (21,):
+    if k == 963 and kbs != (None,):
         kbs = (4,)
     mask, p4 = probe_paired_parts.make_inputs(cuda_device, seed=k, k=k, n=n, h=h, kpad=k + 1)
     mask[0, 0, :2] = 2
     for v in probe_paired_parts.variants(mask, p4, kbs=kbs):
-        row = _probe_check(v, "probe_paired_parts")
+        row = _sweep_probe_check(v, "probe_paired_parts")
         assert row["rel_err"] <= probing.REL_TOL
     assert not probe_paired_parts.paired_parts(mask, p4, "dma_only", kbs[0]).any()
 
@@ -866,21 +869,37 @@ def test_probe_paired_orient_kernel_matches_plain(cuda_device, k, n, h):
     mask, p4 = probe_paired_parts.make_inputs(cuda_device, seed=k, k=k, n=n, h=h, kpad=k + 1)
     mask[0, 0, :2] = 3
     sc = probe_paired_orient.make_scales(cuda_device, kpad=k + 1, n=n)
-    kbs = (4,) if k == 963 else (1, 2, 8)
+    kbs = (4, None) if k == 963 else (1, 2, 8, None)
     sweep = [(mode, kbs) for mode in probe_paired_orient.MODES]
     for v in probe_paired_orient.variants(mask, p4, sc, mask.to(torch.bfloat16), sweep=sweep):
-        _probe_check(v, "probe_paired_orient")
+        row = _sweep_probe_check(v, "probe_paired_orient")
+        assert row["rel_err"] <= probing.REL_TOL
 
 
 def test_probe_paired_orient_small_t_strip_limit(cuda_device):
-    mask, p4 = probe_paired_parts.make_inputs(cuda_device, k=3, n=768, h=64, kpad=3)
-    sc = probe_paired_orient.make_scales(cuda_device, kpad=3, n=768)
-    _probe_check(probe_paired_orient.variants(mask, p4, sc, sweep=[("small_t", (2,))])[0],
-                 "probe_paired_orient")
-    mask, p4 = probe_paired_parts.make_inputs(cuda_device, k=2, n=769, h=8, kpad=2)
-    with pytest.raises(ValueError, match="small_t"):
-        probe_paired_orient.paired_orient(
-            mask, p4, probe_paired_orient.make_scales(cuda_device, kpad=2, n=769), "small_t")
+    """small_t has no strip in shared memory: N past the former 768 runs,
+    each tile staged once, against its plain version."""
+    for k, n, h in ((3, 768, 64), (2, 769, 8), (4, 1300, 40)):
+        mask, p4 = probe_paired_parts.make_inputs(cuda_device, seed=n, k=k, n=n, h=h, kpad=k)
+        sc = probe_paired_orient.make_scales(cuda_device, kpad=k, n=n)
+        for v in probe_paired_orient.variants(mask, p4, sc, mask.to(torch.bfloat16),
+                                              sweep=[("small_t", (1, None))]):
+            _sweep_probe_check(v, "probe_paired_orient")
+
+
+@pytest.mark.parametrize("k,n,h", [(1, 645, 64), (3, 70, 40), (4, 20, 16), (963, 645, 64)])
+def test_probe_paired_both_and_two_dots_equal_k1_k2(cuda_device, k, n, h):
+    """P2's ``both`` (int8 mask) is K1/K2 on ``as_forward_scales(sc)`` and
+    P3's ``two_dots`` K1/K2 on all-ones scales: the same sweep at the same
+    cut, the same bits."""
+    mask, p4 = probe_paired_parts.make_inputs(cuda_device, seed=k, k=k, n=n, h=h, kpad=k + 1)
+    sc = probe_paired_orient.make_scales(cuda_device, kpad=k + 1, n=n)
+    m = mask[:k].contiguous()
+    want = paired_fwd(p4, m, probe_paired_orient.as_forward_scales(sc, k))
+    assert torch.equal(probe_paired_orient.paired_orient(mask, p4, sc, "both"), want)
+    ones = torch.ones((k, 4, n), device=cuda_device)
+    want = paired_fwd(p4, m, ones)
+    assert torch.equal(probe_paired_parts.paired_parts(mask, p4, "two_dots"), want)
 
 
 # P1 and P4 run the paired sweep: the ragged shapes of their CPU tests
@@ -991,6 +1010,14 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
         probe_paired_orient.paired_orient(m8.float(), p4, sc)
     with pytest.raises(ValueError, match="bf16 mask"):
         probe_paired_orient.paired_orient(m8.to(torch.bfloat16), p4, sc, "xo_only")
+    with pytest.raises(ValueError, match="bf16 mask"):
+        probe_paired_orient.paired_orient(m8.to(torch.bfloat16), p4, sc, "xe_only")
+    with pytest.raises(ValueError, match="p4"):
+        probe_paired_orient.paired_orient(m8, p4.float(), sc)
+    with pytest.raises(ValueError, match="stages"):
+        probe_paired_orient.paired_orient(m8, p4, sc, "both", stages=2)
+    with pytest.raises(ValueError, match="kb"):
+        probe_paired_parts.paired_parts(m8, p4, "two_dots", kb=0)
     ct = torch.zeros((8, 20), device=d)
     with pytest.raises(ValueError):
         probe_paired_bwd_idioms.paired_bwd(m8, ct.double(), sc)

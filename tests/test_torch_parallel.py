@@ -54,7 +54,8 @@ from decagon_tpu_torch.train.trainer import Trainer
 from tests import torch_mesh_ranks as ranks
 
 W = ranks.World()
-JAX_IMPL = {"xla": "xla", "dense": "dense", "pallas": "pallas_interpret"}
+JAX_IMPL = {"xla": "xla", "dense": "dense", "pallas": "pallas_interpret", "paired": "paired",
+            "fused_pallas": "fused_pallas"}
 
 
 def _flat(tree, prefix=""):
@@ -278,17 +279,44 @@ def test_sharded_pallas_ref_equals_pallas_on_the_cpu(world):
     assert world[0]["pallas_ref_equal"]
 
 
-def test_sharded_encoder_refuses_what_it_does_not_run(port_single):
-    """An ``spmm_impl`` without a sharded form raises (the JAX interpret
-    mode as the single-process encoder raises it), before any collective."""
+def test_sharded_encoder_refuses_what_it_does_not_run(port_single, world):
+    """The interpret names raise ``NotImplementedError`` and an unknown name
+    ``ValueError``, as in the single-process encoder, before any
+    collective; the names without a sharded form of their own ("paired",
+    "fused") take the COO stream, as the JAX mesh routes them: on the
+    (2, 2) mesh, the "xla" loss, gradients and embeddings bit for bit."""
     from decagon_tpu_torch.parallel.sharded import encode_sharded
 
     sg = build_sharded_device_graph(port_single["graph"], port_single["splits"], (1, 1), 0,
                                     device="cpu")
-    for impl, err in (("fused", ValueError), ("paired", ValueError),
-                      ("pallas_interpret", NotImplementedError)):
+    for impl, err in (("pallas_interpret", NotImplementedError),
+                      ("paired_interpret", NotImplementedError),
+                      ("fused_pallas_interpret", NotImplementedError),
+                      ("no_such_impl", ValueError)):
         with pytest.raises(err):
             encode_sharded(port_single["params"], sg, None, spmm_impl=impl)
+    assert world[0]["coo_equal"] == {"paired": True, "fused_pallas": True, "fused": True}
+
+
+def test_mesh_trainer_trains_the_coo_stream_impls(jax_world, port_single, world):
+    """``Trainer(mesh=...)`` with "paired" or "fused_pallas" trains (it
+    raised before): the sharded graph has no pair masks, so the stacks
+    keep the [K, F, H] layout, as the JAX mesh's do, weight sharding is
+    off, and two batches give the "xla" trainer's losses and parameters
+    bit for bit."""
+    from decagon_tpu.models.encoder import paired_edge_types as jax_paired_edge_types
+    from decagon_tpu_torch.models.encoder import paired_edge_types
+
+    sg_jax = jax_build_sharded(jax_world[0], jax_world[1], jax_make_mesh(shape=(2, 2)))
+    sg = build_sharded_device_graph(port_single["graph"], port_single["splits"], (2, 2), 0,
+                                    device="cpu")
+    assert jax_paired_edge_types(sg_jax, "paired") == paired_edge_types(sg, "paired") == set()
+    got = world[0]["coo_trainer"]
+    want_shapes = {k: tuple(v.shape) for k, v in port_single["params"]["enc1"].items()}
+    for impl in ("paired", "fused_pallas"):
+        assert got[impl]["equal"], impl
+        assert not got[impl]["shard_weights"]
+        assert got[impl]["enc1_shapes"] == want_shapes
 
 
 def test_group_reduction_matches_single_process(port_single, world):

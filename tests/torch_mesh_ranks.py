@@ -178,7 +178,9 @@ def _tanh_loss_grads(model, params, sg, mesh, rows, cols, impl, keys=frozenset()
 # ---- the parity world (tests/test_torch_parallel.py) -----------------------
 
 SHAPES = ((1, 4), (2, 2), (4, 1))
-IMPLS = ("xla", "dense", "pallas")
+# "paired" and "fused_pallas" take the COO stream on the mesh, as in the
+# JAX package.
+IMPLS = ("xla", "dense", "pallas", "paired", "fused_pallas")
 
 
 def parity_world(rank: int, w: World, params_np, rows_np, cols_np, ckpt_dir: str,
@@ -208,10 +210,18 @@ def parity_world(rank: int, w: World, params_np, rows_np, cols_np, ckpt_dir: str
         sg = build_sharded_device_graph(graph, splits, shape, rank, device="cpu")
         sg_tiled = build_sharded_device_graph(graph, splits, shape, rank, device="cpu",
                                               tile_for_pallas=True, tile_even_if_dense=True)
+        outs = {}
         for impl in IMPLS:
             g = sg_tiled if impl == "pallas" else sg
-            loss, grads, emb = _tanh_loss_grads(model, params, g, mesh, rows, cols, impl)
+            outs[impl] = _tanh_loss_grads(model, params, g, mesh, rows, cols, impl)
+            loss, grads, emb = outs[impl]
             res[f"enc/{shape}/{impl}"] = to_numpy({"loss": loss, "grads": grads, "emb": emb})
+        if shape == (2, 2):
+            # The names without a sharded form of their own take the COO
+            # stream: "xla"'s bits.
+            outs["fused"] = _tanh_loss_grads(model, params, sg, mesh, rows, cols, "fused")
+            res["coo_equal"] = {impl: _tree_equal(outs[impl], outs["xla"])
+                                for impl in ("paired", "fused_pallas", "fused")}
         # Weight-sharded: local relation blocks in, gathered gradients out.
         keys = shardable_weight_keys(sg)
         local = local_relation_block(params, sg)
@@ -375,6 +385,20 @@ def trainer_checks(rank, w: World, graph, splits, dg, model, ckpt_dir: str):
         np.asarray(a) if not isinstance(a, torch.Tensor) else a.numpy() for a in args],
         "neg_u": [[u.numpy() for u in slot] for slot in neg_u],
         "end": to_numpy(grouped.state_dict())}
+
+    # spmm_impl values without a sharded form of their own train through
+    # the COO stream: the same bits as "xla", whole [K, F, H] stacks.
+    coo = {}
+    for impl in ("xla", "paired", "fused_pallas"):
+        tr = Trainer(_model(w, dg, spmm_impl=impl), graph, splits, dg,
+                     TrainConfig(batch_size=w.batch), seed=0, mesh=mesh22)
+        losses = [tr.train_batch(b) for b in list(tr.scheduler.epoch())[:2]]
+        coo[impl] = (torch.stack(losses), tr.state_dict()["params"], tr.shard_weights)
+    res["coo_trainer"] = {
+        impl: {"equal": _tree_equal(coo[impl][:2], coo["xla"][:2]),
+               "shard_weights": coo[impl][2],
+               "enc1_shapes": {k: tuple(v.shape) for k, v in coo[impl][1]["enc1"].items()}}
+        for impl in coo}
 
     # A checkpoint of a (2, 2) trainer restores into (1, 4).
     cfg = TrainConfig(batch_size=w.batch, learning_rate=1e-2)
