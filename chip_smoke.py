@@ -115,10 +115,16 @@ Phases, each announced with the seconds elapsed since start:
    P3's ``two_dots`` bit for bit against K1/K2 on the same inputs, and
    K1-K4's registers beside the parent tree's; then, launch counters set
    to 0, CUDA-event times of each kernel, its plain version and, for P5,
-   ``torch.sum``, with bounds; K1's phase-4 time is printed beside P3's
-   parts.  P1-P4 run the paired sweep (P1 at the schedule's cut and at one
-   relation a block; P2 and P3 on parts policies at the schedule's cut and
-   at kb relations a block).  P6's launches are those of its timing in
+   ``torch.sum``, with bounds, and P5 on the device alone (a replayed CUDA
+   graph) with its GB/s beside the card's 3.35 TB/s; K1's phase-4 time is
+   printed beside P3's parts, and P5's int8 read beside P3's ``dma_only``.
+   P5 streams the used relations in tiles of n2 16-byte vectors on a grid
+   of SMs x resident blocks (its grid, blocks an SM and registers are
+   printed), loads software-pipelined, ``conv`` through the paired sweep's
+   own ``s8x4_to_bf16``, the blocks' rows added in a fixed order in the
+   same launch.  P1-P4 run the paired sweep (P1 at the schedule's cut and
+   at one relation a block; P2 and P3 on parts policies at the schedule's
+   cut and at kb relations a block).  P6's launches are those of its timing in
    phase 11.  P1-P4's library call is ``torch.bmm``, one a half, at their
    shape;
 19. framework shell: ``python -m decagon_tpu_torch.cli`` as a user runs it,
@@ -2170,17 +2176,30 @@ def probes(device, seed, paired_rows):
                                        ("both", probing.BOTH, True, 2),
                                        ("small_t", probing.SMALL_T, False, 3),
                                        ("dma", probing.DMA, False, 3))}))
+    p5_grid = {name: dict(p5.kernel_info(kind, device.index or 0))
+               for kind, name in ((0, "int8"), (1, "conv"), (2, "bf16"))}
+    log("P5's grid (SMs x resident blocks an SM), blocks an SM, registers: " + json.dumps(
+        {k: {f: g[f] for f in ("grid", "blocks_per_sm", "registers", "local_bytes")}
+         for k, g in p5_grid.items()}))
     cuda_build.reset_launches()
     timed = {name: [probing.time_variant(v, PROBE_REPS, plain_reps=1) for v in vs]
              for name, vs in groups.items()}
     counts = dict(cuda_build.LAUNCHES)
+    # After the counts: a CUDA graph's capture calls the wrapper, its
+    # replays launch without it.
+    alone = p5.device_rows(groups["probe_int8_bw"])
     rows = {}
     for name, vs in timed.items():
         if counts[name] <= 0:
             raise AssertionError(f"probe {name} never launched its kernel")
-        rows[name] = [{**checked[name][t["case"]], **t} for t in vs]
+        # P5's rows add its device-alone time (its case names are its own).
+        rows[name] = [{**checked[name][t["case"]], **t, **alone.get(t["case"], {})} for t in vs]
         for r in rows[name]:
             log(f"{name} {json.dumps(r)}")
+    hbm = probing.HBM_BYTES_S / 1e9
+    log("P5 on the device alone, GB/s beside the card's " + f"{hbm:.0f}: " + ", ".join(
+        f"{r['case']} {r['device_ms']:.4f} ms {r['device_gbps']:.0f} "
+        f"({r['device_gbps'] / hbm:.0%})" for r in rows["probe_int8_bw"]))
     heads = {"probe_int8_bw": "sum_int8_kb2", "probe_paired_parts": "two_dots_sched",
              "probe_paired_orient": "both_i8_sched",
              "probe_paired_bwd_idioms": f"paired_bwd_K{p4b.K_FULL}",
@@ -2202,7 +2221,10 @@ def probes(device, seed, paired_rows):
         "no scales: " + ", ".join(f"{m} {parts[f'{m}_sched']:.3f}" for m in p3.MODES)
         + " ms; P2 at the schedule's cut: " + ", ".join(
             f"{c} {orient[c]:.3f}" for c in orient if c.endswith(("_sched", "_sched_s2")))
-        + f" ms; P5 int8 read: {rows['probe_int8_bw'][0]['ms']:.3f} ms")
+        + f" ms; P3 dma_only {parts['dma_only_sched']:.3f} ms (the ring's copies of the mask and "
+        f"operands) beside P5's plain int8 read of the 964-relation stack "
+        f"{rows['probe_int8_bw'][0]['device_ms']:.3f} ms and its conv "
+        f"{rows['probe_int8_bw'][2]['device_ms']:.3f} ms (device alone)")
     p1_ms = {r["case"]: r["ms"] for r in rows["probe_paired_idioms"]}
     log(f"P1 on the sweep: {json.dumps(p1_ms)}; P4 on K3's sweep: "
         f"{rows['probe_paired_bwd_idioms'][-1]['ms']:.3f} ms; two torch.bmm at P1's and P4's "
@@ -2372,8 +2394,8 @@ def framework_shell(device, seed):
 
 # Kernels whose first port was redesigned for the card (marked in the report).
 REDESIGNED = ("paired_fwd", "paired_bwd", "sddmm", "sddmm_bf16", "spmm_tiled", "adam",
-              "probe_paired_parts", "probe_paired_orient", "probe_paired_bwd_idioms",
-              "probe_paired_idioms")
+              "probe_int8_bw", "probe_paired_parts", "probe_paired_orient",
+              "probe_paired_bwd_idioms", "probe_paired_idioms")
 
 
 def kernel_entry(name, source, replaces, launches, rows, library_rows=None, cases=None):

@@ -167,7 +167,9 @@ def library() -> ctypes.CDLL:
                 _I, _I, _I, _I, _P,
             ]
             lib.dt_probe_column_sum.restype = _I
-            lib.dt_probe_column_sum.argtypes = [_P, _I, _L, _I, _I, _I, _P, _P, _P]
+            lib.dt_probe_column_sum.argtypes = [_P, _I, _L, _I, _I, _I, _I, _P, _P, _P, _P]
+            lib.dt_probe_column_sum_info.restype = _I
+            lib.dt_probe_column_sum_info.argtypes = [_I, _P]
             lib.dt_probe_parts.restype = _I
             lib.dt_probe_parts.argtypes = [
                 _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,

@@ -831,21 +831,69 @@ def _probe_check(v, counter):
     return row
 
 
-@pytest.mark.parametrize("shape", [(9, 37, 45), (11, 71, 131), (964, 645, 645)],
-                         ids=["ragged", "wide", "probe"])
-def test_probe_int8_bw_kernel_matches_plain(cuda_device, shape):
+@pytest.mark.parametrize("shape,pad,values", [
+    ((9, 37, 45), (48, 64), "mask"), ((11, 71, 131), (80, 144), "mask"),
+    ((964, 645, 645), probe_int8_bw.PADDED, "mask"),
+    ((7, 50, 768), (64, 768), "mask"),
+    ((13, 64, 645), (64, 768), "every"),
+    ((4, 30, 100), (32, 128), "any"), ((2, 3, 20), (16, 32), "any"),
+], ids=["ragged", "wide", "probe", "n768", "every_value", "small", "tiny"])
+def test_probe_int8_bw_kernel_matches_plain(cuda_device, shape, pad, values):
+    # "mask": 0/1 with a few other values; "every": every int8 value, so
+    # conv passes each through s8x4_to_bf16; "any": uniform int8 values in
+    # stacks of fewer tiles than the grid has blocks (most blocks read
+    # nothing, the partial tile is the whole stream).
     g = torch.Generator(device=cuda_device).manual_seed(shape[1])
-    m8 = (torch.rand(shape, generator=g, device=cuda_device) < 0.2).to(torch.int8)
-    m8[0, 0, :3] = torch.tensor([2, -3, 127], dtype=torch.int8)
-    m8[-1, -1, -2:] = -128
-    pad = (48, 64) if shape[1] < 48 else (80, 144) if shape[1] < 80 else probe_int8_bw.PADDED
+    if values == "mask":
+        m8 = (torch.rand(shape, generator=g, device=cuda_device) < 0.2).to(torch.int8)
+        m8[0, 0, :3] = torch.tensor([2, -3, 127], dtype=torch.int8)
+        m8[-1, -1, -2:] = -128
+    else:
+        m8 = torch.randint(-128, 128, shape, generator=g, device=cuda_device,
+                           dtype=torch.int8)
+    if values == "every":
+        m8.view(-1)[:256] = torch.arange(-128, 128, device=cuda_device).to(torch.int8)
     vs = probe_int8_bw.variants(m8, m8.to(torch.bfloat16), probe_int8_bw.padded(m8, pad),
-                                kbs=(1, 2, 3, 8))
-    # n1 * n2 is odd at every shape, so the blocks' ranges start at every
-    # offset within 16 bytes: the element-by-element head and tail run.
-    assert shape[1] * shape[2] % 2 == 1
+                                kbs=tuple(kb for kb in (1, 2, 3, 8) if kb <= shape[0]))
     for v in vs:
         _probe_check(v, "probe_int8_bw")
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2], ids=["int8", "conv", "bf16"])
+def test_probe_int8_bw_entry_leaves_its_counters_zero(cuda_device, kind):
+    # The C entry's contract: the combine's counters are zero on entry and
+    # on exit, so a second launch on the same counters sums the same bits.
+    g = torch.Generator(device=cuda_device).manual_seed(kind)
+    x = torch.randint(-128, 128, (9, 64, 645), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    if kind == 2:
+        x = x.to(torch.bfloat16)
+    k, n1, n2 = x.shape
+    blocks = probe_int8_bw.kernel_info(kind, cuda_device.index or 0)["grid"]
+    groups = -(-blocks // probe_int8_bw.combine_group(blocks))
+    partial = torch.empty((blocks + groups, n2), dtype=torch.float32, device=cuda_device)
+    count = torch.zeros(groups + 1, dtype=torch.int32, device=cuda_device)
+    outs = []
+    for _ in range(2):
+        out = torch.empty((1, n2), dtype=torch.float32, device=cuda_device)
+        status = cuda_build.library().dt_probe_column_sum(
+            x.data_ptr(), kind, n1 * n2, n2, k // 2, 2, blocks, partial.data_ptr(),
+            count.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        cuda_build.check(status, "probe_int8_bw")
+        torch.cuda.synchronize()
+        assert int(count.abs().sum()) == 0
+        outs.append(out)
+    want = probe_int8_bw.pallas_sum_ref(x.cpu(), 2, conv=kind == 1)
+    assert torch.equal(outs[0].cpu(), want) and torch.equal(outs[1], outs[0])
+
+
+def test_probe_int8_bw_grid_comes_from_the_card(cuda_device):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for kind in (0, 1, 2):
+        info = probe_int8_bw.kernel_info(kind, cuda_device.index or 0)
+        assert info["sms"] == sms and info["blocks_per_sm"] >= 1
+        assert info["grid"] == sms * info["blocks_per_sm"]
+        assert info["registers"] <= 128
 
 
 # P2 and P3 run the paired sweep on parts policies: every mode at ragged

@@ -269,6 +269,117 @@ def test_paired_idioms_matches_jax_probe(monkeypatch, no_launch, seed):
 # The wrappers and entry points ----------------------------------------------
 
 
+# P5's cut of the stream (``column_sum_plan``): every element of the used
+# relations is read once and none past them, on the card's grid (132 SMs x
+# 2 or 3 blocks) and on others; the sums emulated in the kernel's order
+# (tile positions, folded into columns in order, then the two-level combine
+# in block and group order) equal the plain version.
+
+PLAN_CASES = [
+    # (shape, kb, element bytes, blocks): the JAX probe's shapes, int8 and
+    # bf16, kb 2 and 8, and the padded stack ...
+    ((964, 645, 645), 2, 1, 264), ((964, 645, 645), 8, 1, 264),
+    ((964, 645, 645), 2, 2, 396), ((964, 645, 645), 8, 2, 396),
+    ((964, 672, 768), 2, 1, 264), ((964, 672, 768), 8, 1, 264),
+    ((964, 645, 645), 2, 1, 528),
+    # ... ragged ones, rows of 768, and streams shorter than a tile a block.
+    ((9, 37, 45), 2, 1, 7), ((9, 37, 45), 8, 2, 5), ((9, 37, 45), 1, 1, 264),
+    ((11, 71, 131), 3, 1, 16), ((11, 71, 131), 1, 2, 33),
+    ((5, 40, 768), 2, 1, 9), ((5, 40, 768), 1, 2, 396),
+    ((3, 645, 645), 2, 1, 264), ((3, 672, 768), 1, 2, 17),
+    ((2, 3, 20), 1, 1, 264), ((2, 3, 20), 2, 2, 1), ((1, 1, 1), 1, 1, 3),
+]
+
+
+def _plan(shape, kb, elem_bytes, blocks):
+    k, n1, n2 = shape
+    return probe_int8_bw.column_sum_plan(kb * (k // kb), n1 * n2, n2, elem_bytes, blocks)
+
+
+@pytest.mark.parametrize("shape,kb,elem_bytes,blocks", PLAN_CASES)
+def test_int8_bw_plan_covers_the_used_relations_once(shape, kb, elem_bytes, blocks):
+    k, n1, n2 = shape
+    plan = _plan(shape, kb, elem_bytes, blocks)
+    tiles = plan.whole + (plan.ragged > 0)
+    assert plan.vector * elem_bytes == 16 and plan.tile == n2 * plan.vector
+    assert plan.total == kb * (k // kb) * n1 * n2
+    assert plan.whole * plan.tile + plan.ragged == plan.total and 0 <= plan.ragged < plan.tile
+    # The blocks' tiles cut [0, tiles) once, in counts that differ by at
+    # most one; the partial tile is its block's last.
+    seen = np.zeros(tiles, np.int64)
+    counts = []
+    for b in range(blocks):
+        mine = np.asarray(plan.tiles_of(b), np.int64)
+        seen[mine] += 1
+        counts.append(mine.size)
+    assert (seen == 1).all() and max(counts) - min(counts) <= 1
+    if plan.ragged:
+        assert list(plan.tiles_of(plan.whole % blocks))[-1] == plan.whole
+    # A tile is a whole number of rows, so position m of every tile lies
+    # in column m % n2; vector t of a tile holds positions [t V, (t + 1) V).
+    assert plan.tile % n2 == 0 and (n1 * n2) % n2 == 0
+    starts = np.arange(n2) * plan.vector
+    assert starts[0] == 0 and starts[-1] + plan.vector == plan.tile
+    # Two levels: groups of ceil(sqrt(blocks)), neither over that many rows.
+    assert plan.group ** 2 >= blocks > (plan.group - 1) ** 2
+    assert plan.groups == -(-blocks // plan.group) <= plan.group
+
+
+def _emulate_sums(flat, n2, plan):
+    """The kernel's arithmetic on the flat stream: each block's sums at the
+    tile's positions (zeros past the end), folded into columns in order,
+    then the groups' rows in block order and out in group order."""
+    rows = []
+    for b in range(plan.blocks):
+        pos = np.zeros(plan.tile, np.float32)
+        for g in plan.tiles_of(b):
+            piece = flat[g * plan.tile:(g + 1) * plan.tile]
+            assert g == plan.whole or piece.size == plan.tile
+            pos[:piece.size] += piece
+        fold = np.zeros(n2, np.float32)
+        for r in range(plan.vector):
+            fold += pos[r * n2:(r + 1) * n2]
+        rows.append(fold)
+    group_rows = []
+    for j in range(plan.groups):
+        acc = np.zeros(n2, np.float32)
+        for row in rows[j * plan.group:(j + 1) * plan.group]:
+            acc += row
+        group_rows.append(acc)
+    out = np.zeros(n2, np.float32)
+    for row in group_rows:
+        out += row
+    return out.reshape(1, n2)
+
+
+@pytest.mark.parametrize("shape,kb,elem_bytes,blocks",
+                         [c for c in PLAN_CASES if c[0][0] * c[0][1] * c[0][2] < 2 * 10 ** 6])
+def test_int8_bw_plan_sums_equal_the_plain_version(no_launch, shape, kb, elem_bytes, blocks):
+    k, n1, n2 = shape
+    rng = np.random.default_rng(k * n2 + kb)
+    m8 = rng.integers(-128, 128, size=shape, dtype=np.int8)
+    x = torch.from_numpy(m8)
+    if elem_bytes == 2:
+        x = x.to(torch.bfloat16)
+    plan = _plan(shape, kb, elem_bytes, blocks)
+    flat = x.float().reshape(-1).numpy()
+    # Every element of the used relations once, none past them.
+    seen = np.zeros(flat.size, np.int64)
+    for b in range(blocks):
+        for g in plan.tiles_of(b):
+            seen[g * plan.tile:min((g + 1) * plan.tile, plan.total)] += 1
+    assert (seen[:plan.total] == 1).all() and (seen[plan.total:] == 0).all()
+    want = probe_int8_bw.pallas_sum_ref(x, kb).numpy()
+    np.testing.assert_array_equal(_emulate_sums(flat[:plan.total], n2, plan), want)
+
+
+@pytest.mark.parametrize("args", [(0, 45, 45, 1, 8), (2, 46, 45, 1, 8), (2, 900, 900, 1, 8),
+                                  (2, 45, 45, 4, 8), (2, 45, 45, 1, 0)])
+def test_int8_bw_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        probe_int8_bw.column_sum_plan(*args)
+
+
 def _meta_calls():
     m = torch.empty((3, 20, 20), dtype=torch.int8, device="meta")
     p4 = torch.empty((2, 3, 8, 20), dtype=torch.bfloat16, device="meta")
