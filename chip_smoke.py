@@ -77,6 +77,22 @@ Phases, each announced with the seconds elapsed since start:
    through the lazy row Adam), bitwise equal; then ``pallas_adam`` with
    f32 moments and gradients (its gate's leaf in place, in the same
    launch) against the plain version at that config;
+12b. grouped trainer (paper scale): the quality run's ``TrainConfig``
+   (``decagon_tpu_torch/scripts/quality_full.py``: batch 512, hinge with
+   margin 0.1, the balanced schedule, ``relation_group=8`` batches an
+   optimization step, lr 3e-3 decayed by a cosine over a few hundred
+   optimization steps to a tenth, chunks of 32 steps) on phase 3's graph
+   from a copy of phase 10's state; launch counters set to 0, then one
+   warm-up chunk and 2 timed ones: ms a grouped step and a batch; every
+   loss finite, both paired kernels launched and K7 exactly once an
+   optimization step (not once a batch).  Then the quality run's evaluation
+   of an epoch on the trained parameters (one embedding, the pooled
+   validation and test sweeps): seconds and launches, logged apart from the
+   main path's.  Then one grouped chunk of 4 steps
+   from a copy of the state, through K7 and through its plain version
+   (``make_grouped_chunked_train_step`` given ``make_optimizer(cfg,
+   one_pass=adam_apply_ref)``), parameters, moments and losses bitwise
+   equal;
 13. dummy config on the card: the port's copy of the JAX package's
    ``test_dummy_config_learns_into_reference_band`` (500 genes, 400
    drugs, 3 side effects; the ``Trainer`` in chunks of 50), whose last
@@ -264,6 +280,10 @@ TRAIN_STEPS = {(1, 1): 4, (0, 0): 2}
 TRAINER_CHUNK = 32
 TRAINER_WINDOWS = 3
 PALLAS_CHUNK = 4
+# Phase 12b: the quality run's grouped Trainer (batches an optimization
+# step, chunk in optimization steps, timed chunks after one warm-up, the
+# cosine's horizon in optimization steps).
+GROUP, GROUPED_CHUNK, GROUPED_WINDOWS, GROUPED_LR_STEPS = 8, 32, 2, 300
 # Phase 12 holds the ``pallas_adam`` chunk against the plain version's to
 # this share of each leaf's largest magnitude where the two are not equal
 # bit for bit (the kernel rounds as the plain chain does); the default
@@ -1274,6 +1294,119 @@ def optimizer_chunks(graph, splits, dg, model, seed, state):
     finally:
         torch.use_deterministic_algorithms(False)
     return {name: sum(c[name] for c in counts.values()) for name in counts["default"]}, summary
+
+
+def grouped_trainer(graph, splits, dg, model, evaluator, seed, state):
+    """Phase 12b: the quality run's grouped, balanced, cosine-decayed
+    ``Trainer`` from a copy of phase 10's ``state``, timed, then the quality
+    run's evaluation of an epoch on its parameters (one embedding, the
+    pooled validation and test sweeps; launches and seconds), then one
+    grouped chunk through K7 against its plain version; returns (launch
+    counts of the timed run, summary)."""
+    import torch
+
+    from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.ops.optim import adam_apply_ref
+    from decagon_tpu_torch.timing import hard_sync
+    from decagon_tpu_torch.train.step import (
+        TrainConfig, make_grouped_chunked_train_step, make_optimizer,
+    )
+    from decagon_tpu_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(batch_size=512, learning_rate=3e-3, loss="hinge", margin=0.1,
+                      scan_chunk=GROUPED_CHUNK, schedule="balanced", relation_group=GROUP,
+                      lr_schedule="cosine", lr_schedule_steps=GROUPED_LR_STEPS, lr_min_frac=0.1)
+    per_call = GROUPED_CHUNK * GROUP
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(model, graph, splits, dg, cfg, seed=seed, init_state=_clone(state))
+    epoch = trainer.scheduler.epoch()
+    batches = [next(epoch) for _ in range(per_call * (GROUPED_WINDOWS + 1))]
+    start_step = trainer.opt_step
+    cuda_build.reset_launches()
+    losses = [trainer.train_chunk(batches[:per_call], GROUPED_CHUNK)]
+    hard_sync(trainer.params)
+    times = []
+    for rep in range(GROUPED_WINDOWS):
+        lo = per_call * (1 + rep)
+        t0 = time.perf_counter()
+        losses.append(trainer.train_chunk(batches[lo:lo + per_call], GROUPED_CHUNK))
+        hard_sync(trainer.params)
+        times.append((time.perf_counter() - t0) / GROUPED_CHUNK)
+    counts = dict(cuda_build.LAUNCHES)
+    losses = torch.cat(losses).cpu()
+    steps = trainer.opt_step - start_step
+    ms = sorted(t * 1e3 for t in times)
+    summary = dict(
+        config=dict(relation_group=GROUP, schedule="balanced", lr=cfg.learning_rate,
+                    lr_schedule="cosine", lr_schedule_steps=GROUPED_LR_STEPS,
+                    chunk=GROUPED_CHUNK, start_opt_step=start_step),
+        opt_steps=steps, batches=len(batches), window_ms_per_grouped_step=[t * 1e3 for t in times],
+        ms_per_grouped_step_min=ms[0], ms_per_batch_min=ms[0] / GROUP,
+        first_losses=losses[:4].tolist(), last_losses=losses[-4:].tolist(),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, launches=counts,
+        adam_launches_per_opt_step=counts["adam"] / steps,
+    )
+    log(f"grouped trainer: {summary['ms_per_grouped_step_min']:.3f} ms a grouped step of {GROUP} "
+        f"batches ({summary['ms_per_batch_min']:.3f} ms a batch, min of {GROUPED_WINDOWS} "
+        f"windows {summary['window_ms_per_grouped_step']}), peak memory "
+        f"{summary['peak_memory_gib']:.2f} GiB, launches {counts}")
+    if not bool(torch.isfinite(losses).all()) or len(losses) != steps:
+        raise AssertionError(f"grouped trainer: {len(losses)} losses for {steps} steps, "
+                             f"not all finite: {losses.tolist()}")
+    if steps != GROUPED_CHUNK * (GROUPED_WINDOWS + 1) or trainer.global_step - state[
+            "global_step"] != len(batches):
+        raise AssertionError(f"grouped trainer: {steps} optimization steps for {len(batches)} "
+                             f"batches in groups of {GROUP}")
+    if counts["adam"] != steps:
+        raise AssertionError(f"grouped trainer: K7 launched {counts['adam']} times in {steps} "
+                             f"optimization steps of {GROUP} batches (one launch a step)")
+    for name in ("paired_fwd", "paired_bwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"grouped trainer: kernel {name} never launched")
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    emb = evaluator.embeddings(trainer.params, dg)
+    val = evaluator.evaluate_all_drug_drug(trainer.params, dg, embeddings=emb)
+    test = evaluator.evaluate_all_drug_drug(trainer.params, dg, use_test=True, embeddings=emb)
+    summary["evaluation"] = dict(seconds=time.perf_counter() - t0, val_auroc=val.auroc,
+                                 test_auroc=test.auroc,
+                                 launches={k: v for k, v in cuda_build.LAUNCHES.items() if v})
+    del emb
+    log(f"grouped trainer's evaluation (embedding, pooled validation and test): "
+        f"{json.dumps(summary['evaluation'])}")
+    if not all(0.0 <= a <= 1.0 for a in (val.auroc, test.auroc)):
+        raise AssertionError(f"grouped trainer's evaluation: AUROC {val.auroc}, {test.auroc}")
+    start = trainer.state_dict()
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for plain in (False, True):
+            copy = Trainer(model, graph, splits, dg, cfg, seed=seed, init_state=_clone(start))
+            if plain:
+                copy._chunk_fn = make_grouped_chunked_train_step(
+                    model, dg, cfg, make_optimizer(cfg, one_pass=adam_apply_ref))
+            epoch = copy.scheduler.epoch()
+            group = [next(epoch) for _ in range(PALLAS_CHUNK * GROUP)]
+            cuda_build.reset_launches()
+            chunk_losses = copy.train_chunk(group, PALLAS_CHUNK)
+            hard_sync(copy.params)
+            out[plain] = (dict(cuda_build.LAUNCHES)["adam"], chunk_losses.cpu(), _chunk_state(copy))
+            del copy
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (ka, lk, got), (pa, lp, want) = out[False], out[True]
+    unequal = [f"{kind}{name}" for kind, a, b in zip("pmv", got, want) for name in b
+               if not (a[name].dtype == b[name].dtype and torch.equal(a[name], b[name]))]
+    log(f"grouped chunk through K7 against the plain version: adam launches {ka} / {pa}, "
+        f"losses {lk.tolist()} / {lp.tolist()}, {len(unequal)} leaves not bitwise equal")
+    if ka != PALLAS_CHUNK or pa != 0:
+        raise AssertionError(f"grouped chunk: K7 launched {ka} times in {PALLAS_CHUNK} steps, "
+                             f"{pa} in the plain chunk")
+    if unequal or not torch.equal(lk, lp):
+        raise AssertionError(f"grouped chunk through K7 differs from the plain one: {unequal[:8]}")
+    summary["plain_chunk"] = dict(steps=PALLAS_CHUNK, launches=ka, bitwise_equal=True)
+    del trainer
+    return counts, summary
 
 
 def checkpoint_round_trip(trainer, evaluator, seed):
@@ -2487,6 +2620,10 @@ def main(argv=None) -> int:
 
     phase("trainer chunks through K7 and its plain version, and with pallas_adam (paper scale)")
     chunk_counts, chunk_summary = optimizer_chunks(graph, splits, dg, model, args.seed, state)
+
+    phase("grouped trainer: the quality run's config (paper scale)")
+    grouped_counts, grouped_summary = grouped_trainer(graph, splits, dg, model, evaluator,
+                                                      args.seed, state)
     del state
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -2531,11 +2668,11 @@ def main(argv=None) -> int:
 
     phase("done")
     launches = {name: counts[name] + train_counts[name] + trainer_counts[name]
-                + chunk_counts[name] + sparse_counts[name] + mesh_counts[name]
-                for name in train_counts}
+                + chunk_counts[name] + grouped_counts[name] + sparse_counts[name]
+                + mesh_counts[name] for name in train_counts}
     log(f"launches on the main path: serve {counts}, train {train_counts}, trainer "
-        f"{trainer_counts}, trainer chunks of phase 12 {chunk_counts}, sparse "
-        f"{sparse_counts}, mesh {mesh_counts}")
+        f"{trainer_counts}, trainer chunks of phase 12 {chunk_counts}, grouped trainer "
+        f"{grouped_counts}, sparse {sparse_counts}, mesh {mesh_counts}")
     # K7's line: the main path's leaf tree (its library call, over the same
     # leaves, keeps f32 moments); the one-leaf cases are listed beside it.
     # P6's bf16 case has its own line.
@@ -2544,7 +2681,8 @@ def main(argv=None) -> int:
                       cases=[adam_tree_row] + adam_rows)
     k7.update(library=adam_tree_row["library"], launches_by_phase={
         "train_steps_phase7": train_counts["adam"], "trainer_phase10": trainer_counts["adam"],
-        "trainer_chunks_phase12": chunk_counts["adam"], "sparse_phase16": sparse_counts["adam"],
+        "trainer_chunks_phase12": chunk_counts["adam"],
+        "grouped_trainer_phase12b": grouped_counts["adam"], "sparse_phase16": sparse_counts["adam"],
         "mesh_phase20a": mesh_counts["adam"]})
     report = {"kernels": [
         kernel_entry("paired_fwd", "decagon_tpu_torch/csrc/paired_fwd.cu",
@@ -2579,6 +2717,7 @@ def main(argv=None) -> int:
         for name, source, replaces in PROBES
         for head in [[r for r in probe_rows[name] if r["case"] == probe_heads[name]]]
     ], "train": train_summary, "trainer": trainer_summary, "optimizer_chunks": chunk_summary,
+        "grouped_trainer": grouped_summary,
         "dummy_gate": gate, "sparse_state": sparse_summary, "sparse_training": sparse_train,
         "framework_shell": shell,
         "mesh": {"paper": mesh_paper_summary, "ranks": mesh_ranks_summary}}

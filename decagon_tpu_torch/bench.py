@@ -16,25 +16,40 @@ Ports the parts of the JAX package's ``bench.py`` that the port runs:
    layouts built beside the paired masks) through the sparse kernel K6,
    ``spmm_impl="pallas"`` at ``spmm_precision`` "default" and "highest",
    the ``Trainer`` in chunks of 20 from fresh seeded weights (the paired
-   config's weights have another layout), each with its ratio to the
-   headline's step time (``vs_headline``); ``full_pallas_bf16`` also
-   profiles one chunk of 8 steps, as the headline does.
+   config's weights have another layout); ``full_pallas_bf16`` also
+   profiles one chunk of 8 steps, as the headline does;
+4. ``full_dense_bf16`` and ``full_factored_int8``: the same graph and split
+   on device graphs of their own, built once the configs above are freed
+   (the port builds no dense stack beside a mask form): the bf16 dense
+   stacks (``spmm_impl="dense"``), then the int8 factored masks and their
+   transposes (``spmm_impl="dense_factored"``), each the ``Trainer`` in
+   chunks of 320 steps, the factored one starting from the dense one's
+   state, as the JAX bench does.  Both aggregations are plain PyTorch, as
+   they are plain XLA in the JAX package; the only kernel they launch is
+   the optimizer K7.
 
-Each config times its chunks (6 toy, 3 paired, 5 and 3 sparse) after one
-warm-up chunk (host clock, synchronized after each chunk) and reports edges/s
-(adjacency nonzeros aggregated per second of train step), min and median
-ms per step and the effective TFLOP/s of the aggregation; the paired
-config adds its HBM
-share: the half mask stacks read four times a step (two layers, forward
-and backward) over 3.35 TB/s (H100 SXM).  On CUDA the headline and
-``full_pallas_bf16`` each run one more chunk of 8 steps under
-``torch.profiler``: the device's busy ms a step, its idle share and the
-kernels that take the most device time.  The JAX package's dense and
-factored trainers are not ported here.
+The headline is the fastest of ``full_paired_int8``, ``full_factored_int8``
+and ``full_dense_bf16``, as the JAX bench picks it.  Each config times its
+chunks (6 toy, 3 paired, dense and factored, 5 and 3 sparse) after one
+warm-up chunk (host clock, synchronized after each chunk) and reports
+edges/s (adjacency nonzeros aggregated per second of train step), min and
+median ms per step and the effective TFLOP/s of the aggregation; the
+paper-scale configs add their peak memory and their ratio to the
+headline's step time (``vs_headline``) and, but for the dense one, to the
+dense config's (``vs_dense``).  The stack configs add their HBM share
+(``hbm_util``): the stacks a step reads four times (two layers, forward
+and backward: the half mask stacks, the bf16 dense stacks, the forward
+int8 masks whose transposes the backward reads) over 3.35 TB/s (H100
+SXM), with the stacks' size in GB (``pair_mask_gb``, ``dense_stacks_gb``,
+``mask_stacks_gb``).  On CUDA the headline, ``full_pallas_bf16``,
+``full_dense_bf16`` and ``full_factored_int8`` each run one more chunk of 8
+steps under ``torch.profiler``: the device's busy ms a step, its idle share
+and the kernels that take the most device time.
 
 Prints one JSON line: ``metric``, ``value``, ``unit``, ``vs_baseline``,
-``hbm_roofline_fraction``, ``configs``, and ``torch``, ``device`` (the
-``nvidia-smi`` name and power limit) and ``backend``.  Runs on CUDA unless
+``hbm_roofline_fraction``, ``configs``, ``note`` (which config is the
+headline), and ``torch``, ``device`` (the ``nvidia-smi`` name and power
+limit) and ``backend``.  Runs on CUDA unless
 ``--device cpu`` is given.
 """
 
@@ -57,10 +72,12 @@ REFERENCE_ITER_LATENCY_S = 0.0055  # decagon_iteration_results_0.csv Latency
 HBM_BYTES_S = 3.35e12  # H100 SXM
 TOY_CHUNK, TOY_WINDOWS = 100, 6
 CHUNK, WINDOWS = 320, 3
-PROFILE_STEPS = 8  # the profiled chunk of the headline and full_pallas_bf16 (on CUDA)
+PROFILE_STEPS = 8  # the profiled chunk of the stack configs and full_pallas_bf16 (on CUDA)
 # The sparse configs: chunk, and timed windows per spmm_precision.
 PALLAS_CHUNK = 20
 PALLAS_CONFIGS = (("full_pallas_bf16", "default", 5), ("full_pallas_f32", "highest", 3))
+# The configs the headline is picked from, as ``bench.py`` picks it.
+HEADLINE_CANDIDATES = ("full_paired_int8", "full_factored_int8", "full_dense_bf16")
 PAPER = dict(
     n_proteins=19081, n_drugs=645, n_side_effects=963, min_edges_per_relation=500,
     total_drugdrug_edges=4_651_131, ppi_attachment=37, seed=7,
@@ -161,19 +178,40 @@ def bench_toy(device) -> dict:
     return config_metrics(graph_nnz(dg), steady_state_ms(trainer, TOY_CHUNK, TOY_WINDOWS))
 
 
-def bench_fullscale(device) -> dict:
-    """The paper-scale configs: ``full_paired_int8`` (the headline) and the
-    sparse ``full_pallas_*``, on one device graph holding both layouts."""
+def _peak_gib(device):
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def _reset_peak(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _stack_config(trainer, device, nnz: int, stack_bytes: int, chunk: int, windows: int) -> dict:
+    """A stack config's timing, metrics, HBM share (its stacks read four
+    times a step) and peak memory; on CUDA its profile."""
+    t = steady_state_ms(trainer, chunk, windows)
+    out = config_metrics(nnz, t)
+    out["hbm_util"] = 4 * stack_bytes / (t["min_ms"] / 1e3) / HBM_BYTES_S
+    out["peak_memory_gib"] = _peak_gib(device)
+    if device.type == "cuda":
+        out["profile"] = device_profile(trainer, PROFILE_STEPS, t["median_ms"])
+    return out
+
+
+def bench_paired_sparse(graph, splits, device) -> dict:
+    """``full_paired_int8`` and the sparse ``full_pallas_*``, on one device
+    graph holding both layouts."""
     from decagon_tpu_torch.graph.device import build_device_graph
-    from decagon_tpu_torch.graph.split import split_graph
-    from decagon_tpu_torch.graph.synthetic import make_polypharmacy_like_graph
     from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
     from decagon_tpu_torch.train.step import TrainConfig
     from decagon_tpu_torch.train.trainer import Trainer
 
+    _reset_peak(device)
     t0 = time.perf_counter()
-    graph = make_polypharmacy_like_graph(**PAPER)
-    splits = split_graph(graph, val_frac=0.05, test_frac=0.05, seed=1)
     dg = build_device_graph(
         graph, splits, densify_max_cells=1_000_000_000,
         dense_factored=True, dense_paired=True, tile_for_pallas=True,
@@ -181,23 +219,17 @@ def bench_fullscale(device) -> dict:
     )
     hard_sync(dg.neg_cdf)
     build_s = time.perf_counter() - t0
-    _progress(f"paper-scale device graph built ({build_s:.0f}s)")
+    _progress(f"paired and sparse device graph built ({build_s:.0f}s)")
     model = DecagonModel(
         ModelConfig(hidden1=64, hidden2=32, dropout=0.1, spmm_impl="paired"), dg
     )
     cfg = TrainConfig(batch_size=512, learning_rate=1e-3, scan_chunk=CHUNK)
     trainer = Trainer(model, graph, splits, dg, cfg, seed=0)
     pair_bytes = sum(a.pair_mask.numel() for a in dg.adj.values() if a.pair_mask is not None)
-    t = steady_state_ms(trainer, CHUNK, WINDOWS)
     nnz = graph_nnz(dg)
-    out = config_metrics(nnz, t)
+    out = _stack_config(trainer, device, nnz, pair_bytes, CHUNK, WINDOWS)
     out["pair_mask_gb"] = pair_bytes / 1e9
-    # The half mask stacks, read four times a step (two layers, forward
-    # and backward), against the card's memory rate.
-    out["hbm_util"] = 4 * pair_bytes / (t["min_ms"] / 1e3) / HBM_BYTES_S
-    out["host_build_s"] = build_s
-    if device.type == "cuda":
-        out["profile"] = device_profile(trainer, PROFILE_STEPS, t["median_ms"])
+    out["host_build_s"] = build_s  # the caller adds the host graph's seconds
     configs = {"full_paired_int8": out}
     del trainer
     for tag, precision, windows in PALLAS_CONFIGS:
@@ -210,11 +242,99 @@ def bench_fullscale(device) -> dict:
                           seed=0)
         tp = steady_state_ms(trainer, PALLAS_CHUNK, windows)
         configs[tag] = config_metrics(nnz, tp)
-        configs[tag]["vs_headline"] = tp["min_ms"] / t["min_ms"]
+        configs[tag]["peak_memory_gib"] = _peak_gib(device)
         if device.type == "cuda" and precision == "default":
             configs[tag]["profile"] = device_profile(trainer, PROFILE_STEPS, tp["median_ms"])
         del trainer
     return configs
+
+
+def bench_dense_factored(graph, splits, device, chunk: int = CHUNK, windows: int = WINDOWS,
+                         trainer_cls=None) -> dict:
+    """``full_dense_bf16`` and ``full_factored_int8``, each on a device
+    graph of its own (the dense one freed before the factored one is
+    built): the dense ``Trainer`` from seeded weights, the factored one
+    from a copy of the dense one's state (``init_state``), as the JAX
+    bench starts it.  ``trainer_cls``: the ``Trainer`` (for tests)."""
+    from decagon_tpu_torch.graph.device import build_device_graph
+    from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
+    from decagon_tpu_torch.ops.optim import tree_map
+    from decagon_tpu_torch.train.step import TrainConfig
+    from decagon_tpu_torch.train.trainer import Trainer
+
+    trainer_cls = trainer_cls or Trainer
+    cfg = TrainConfig(batch_size=512, learning_rate=1e-3, scan_chunk=chunk)
+    configs = {}
+    state = None
+    for tag, impl, build in (
+        ("full_dense_bf16", "dense", dict(dense_dtype=torch.bfloat16)),
+        ("full_factored_int8", "dense_factored", dict(dense_factored=True)),
+    ):
+        _progress(tag)
+        _reset_peak(device)
+        t0 = time.perf_counter()
+        dg = build_device_graph(graph, splits, densify_max_cells=1_000_000_000,
+                                build_fused=False, device=device, **build)
+        hard_sync(dg.neg_cdf)
+        build_s = time.perf_counter() - t0
+        model = DecagonModel(ModelConfig(hidden1=64, hidden2=32, dropout=0.1, spmm_impl=impl), dg)
+        trainer = trainer_cls(model, graph, splits, dg, cfg, seed=0, init_state=state)
+        if impl == "dense":
+            stacks = [a.dense for a in dg.adj.values() if a.dense is not None]
+            size_key = "dense_stacks_gb"
+        else:
+            stacks = [a.dense_mask for a in dg.adj.values() if a.dense_mask is not None]
+            size_key = "mask_stacks_gb"
+        stack_bytes = sum(x.numel() * x.element_size() for x in stacks)
+        out = _stack_config(trainer, device, graph_nnz(dg), stack_bytes, chunk, windows)
+        out[size_key] = stack_bytes / 1e9
+        out["host_build_s"] = build_s
+        configs[tag] = out
+        if state is None:
+            state = tree_map(
+                lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
+                trainer.state_dict())
+        del trainer, model, dg
+    return configs
+
+
+def pick_headline(configs: dict) -> str:
+    """The fastest (least ``ms_per_step_min``) of ``HEADLINE_CANDIDATES``
+    present, as ``bench.py`` picks it."""
+    present = [key for key in HEADLINE_CANDIDATES if key in configs]
+    return min(present, key=lambda key: configs[key]["ms_per_step_min"])
+
+
+def add_ratios(configs: dict, headline: str) -> None:
+    """``vs_headline`` on every paper-scale config but the headline, and
+    ``vs_dense`` on every one but the dense config: ratios of
+    ``ms_per_step_min``."""
+    head = configs[headline]["ms_per_step_min"]
+    dense = configs["full_dense_bf16"]["ms_per_step_min"]
+    for key, c in configs.items():
+        if key != headline:
+            c["vs_headline"] = c["ms_per_step_min"] / head
+        if key != "full_dense_bf16":
+            c["vs_dense"] = c["ms_per_step_min"] / dense
+
+
+def bench_fullscale(device) -> dict:
+    """The paper-scale configs, each with its ``vs_headline`` and
+    ``vs_dense``; returns (configs, headline key)."""
+    from decagon_tpu_torch.graph.split import split_graph
+    from decagon_tpu_torch.graph.synthetic import make_polypharmacy_like_graph
+
+    t0 = time.perf_counter()
+    graph = make_polypharmacy_like_graph(**PAPER)
+    splits = split_graph(graph, val_frac=0.05, test_frac=0.05, seed=1)
+    graph_s = time.perf_counter() - t0
+    configs = bench_paired_sparse(graph, splits, device)
+    configs["full_paired_int8"]["host_build_s"] += graph_s
+    _progress("dense and factored configs")
+    configs.update(bench_dense_factored(graph, splits, device))
+    headline = pick_headline(configs)
+    add_ratios(configs, headline)
+    return configs, headline
 
 
 def _device_name(device) -> str:
@@ -234,8 +354,8 @@ def main(argv=None) -> int:
     _progress("toy config")
     toy = bench_toy(device)
     _progress("paper-scale configs")
-    full = bench_fullscale(device)
-    headline = full["full_paired_int8"]
+    full, headline_key = bench_fullscale(device)
+    headline = full[headline_key]
     _progress("done")
     print(json.dumps({
         "metric": "fullscale_train_step_edges_per_s_per_chip",
@@ -247,8 +367,9 @@ def main(argv=None) -> int:
         "torch": torch.__version__,
         "device": _device_name(device),
         "backend": device.type,
-        "note": "headline = paper-scale train step (forward, backward, Adam) through the "
-                "paired int8 mask kernels",
+        "note": f"headline = {headline_key}: the fastest paper-scale train step (forward, "
+                "backward, Adam) of full_paired_int8 (the paired int8 mask kernels), "
+                "full_factored_int8 and full_dense_bf16",
     }))
     return 0
 

@@ -45,16 +45,56 @@ def spmm_segment(
     return out.index_add(0, receivers.long(), msgs)
 
 
+# Cells of the dense stack upcast to f32 at once (2^27: 512 MB), so that no
+# f32 copy of a whole stack (3.2 GB at the paper's drug-drug shape) is made
+# or kept for the backward.
+_DENSE_CHUNK_CELLS = 1 << 27
+
+
+def _relation_chunks(dense_adj: torch.Tensor):
+    """Slices of whole relations of at most ``_DENSE_CHUNK_CELLS`` cells
+    (one relation if a single one is larger)."""
+    k, n_i, n_j = dense_adj.shape
+    step = max(1, _DENSE_CHUNK_CELLS // max(1, n_i * n_j))
+    return [slice(lo, min(k, lo + step)) for lo in range(0, k, step)]
+
+
+class _Dense(torch.autograd.Function):
+    """``sum_k A_k @ P_k`` over the dense stack, a chunk of relations at a
+    time: each chunk's stack upcast to f32, one batched product to
+    ``[k, N_out, H]``, summed over its relations, the chunks' sums added in
+    order.  A bf16 stack rounds ``P`` to bf16 first, and the backward
+    rounds ``dP = A^T ct`` to bf16, as autograd of the cast does."""
+
+    @staticmethod
+    def forward(ctx, p_stack, dense_adj):
+        ctx.save_for_backward(dense_adj)
+        ctx.p_dtype = p_stack.dtype
+        if dense_adj.dtype == torch.bfloat16:
+            p_stack = p_stack.to(torch.bfloat16).float()
+        out = None
+        for part in _relation_chunks(dense_adj):
+            acc = torch.bmm(dense_adj[part].float(), p_stack[part]).sum(0)
+            out = acc if out is None else out + acc
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        (dense_adj,) = ctx.saved_tensors
+        dp = torch.cat([torch.matmul(dense_adj[part].float().transpose(1, 2), ct)
+                        for part in _relation_chunks(dense_adj)])
+        if dense_adj.dtype == torch.bfloat16:
+            dp = dp.to(torch.bfloat16)
+        return dp.to(ctx.p_dtype), None
+
+
 def spmm_dense(p_stack: torch.Tensor, dense_adj: torch.Tensor) -> torch.Tensor:
-    """``sum_k A_k @ P_k`` as one batched product over the dense stack
-    ``[K, N_out, N_src]``.  A bf16 stack rounds the features to bf16 too,
-    with f32 sums: the operands are upcast to f32 before the product (a
-    bf16 x bf16 matmul in PyTorch would round its output to bf16, where XLA
-    keeps f32)."""
-    if dense_adj.dtype == torch.bfloat16:
-        p_stack = p_stack.to(torch.bfloat16).float()
-        dense_adj = dense_adj.float()
-    return torch.einsum("kij,kjh->ih", dense_adj, p_stack)
+    """``sum_k A_k @ P_k`` over the dense stack ``[K, N_out, N_src]``.  A
+    bf16 stack rounds the features to bf16 too, with f32 sums: the operands
+    are upcast to f32 before the product (a bf16 x bf16 matmul in PyTorch
+    would round its output to bf16, where XLA keeps f32), a chunk of
+    relations at a time (``_Dense``)."""
+    return _Dense.apply(p_stack, dense_adj)
 
 
 class _DenseFactored(torch.autograd.Function):

@@ -51,7 +51,7 @@ def test_port_and_chip_smoke_import_no_jax():
                    "predict.export", "train.active", "train.layout", "graph.ids",
                    "scripts.np_predictor_example", "parallel", "parallel.mesh",
                    "parallel.collectives", "parallel.rowshard", "parallel.sharded",
-                   "scripts.probe_mesh_step"):
+                   "scripts.probe_mesh_step", "scripts.quality_full"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]
