@@ -51,7 +51,7 @@ Phases, each announced with the seconds elapsed since start:
    the plain versions from the same state, bits and negatives;
 10. trainer (paper scale): launch counters set to 0, then the ``Trainer``
    with the default ``TrainConfig`` (bf16 moments and large gradients) in
-   chunks of 32 steps: one warm-up chunk and 3 timed ones; ms per step,
+   chunks of 32 steps: one warm-up chunk and 2 timed ones; ms per step,
    edges/s in ``bench.py``'s schema, peak memory, the launches (both
    paired kernels > 0, the multi-tensor Adam K7 exactly once a step: one
    launch updates every leaf), and the gap to phase 7's single-step time;
@@ -110,8 +110,8 @@ Phases, each announced with the seconds elapsed since start:
    ``torch.sparse.mm`` on the same CSR (f32), bounds;
 16. sparse training (paper scale, ``spmm_impl="pallas"``): launch counters
    set to 0, then ``make_train_step`` at "default" (2 drug-drug steps, 1
-   PPI) with the forward / backward / Adam split, the ``Trainer`` at both
-   precisions (chunks of 8: one warm-up, 2 timed; ms per step, edges/s,
+   PPI) with the forward / backward / Adam split, the ``Trainer`` at
+   "default" (chunks of 8: one warm-up, 2 timed; ms per step, edges/s,
    peak memory, K7's launches a step, which must be 1) and the pooled
    drug-drug evaluation with bf16 scoring; K6 and K5-bf16 must launch and
    the paired kernels not.  Then one
@@ -166,7 +166,7 @@ Phases, each announced with the seconds elapsed since start:
    NCCL, a (1, 1) mesh, the sharded graph with K6's layouts on every edge
    type (seconds, GiB); launch counters set to 0, then the mesh
    ``Trainer`` at batch 512 in chunks of 8 (one warm-up, 2 timed; ms a
-   step beside phase 16's "highest" ``Trainer``) and the evaluator through
+   step beside phase 16's ``Trainer``) and the evaluator through
    its ``embed_fn`` on relation (1, 1, 0)'s validation edges, which must
    launch K6 and K5, and whose K5 scores must match the plain scorer on
    the same operands; one deterministic step (dropout 0, the same negative
@@ -182,6 +182,26 @@ Phases, each announced with the seconds elapsed since start:
    each rank's own operands, the library of phase 2 loaded, not built
    again.  The mesh launches of (a)
    are added to the main path's.
+21. sparse regime beyond the paper's scale, run after phase 20 (a) and
+   before 17: ``decagon_tpu_torch/scripts/bench_sparse_regime.py``'s
+   ``beyond_paper`` config (19,081 proteins, 1,600 drugs, 963 side effects
+   with transposes, 6M drug-drug edges; no stack, K6's layouts on every
+   edge type), its host graph, split and layouts built through that
+   script's own functions by a process of this script's (``--prepare-beyond``)
+   started after phase 1, at low priority, while phases 2-20 (a) run, then
+   loaded and moved to the card (each stage's seconds, the wait, the
+   layouts, the would-be 9.2 GiB drug-drug bf16 stack beside the card's
+   memory); K6 against its plain version on the drug-drug layouts (both
+   layers, forward and backward, both precisions, with the launch plan
+   each call took: the rows join K6's cases); then, launch counters set to
+   0, the ``Trainer`` at "default" with ``remat`` off and on from one
+   state drawn on the card (one warm-up chunk of 10 and one timed; ms a
+   step, peak GiB), one grouped chunk of 32 optimization steps at the
+   quality run's ``TrainConfig`` (``scripts/quality_sparse_regime.py``)
+   and one evaluation of an epoch: K6 and K5 must launch, K7 once an
+   optimization step, K1-K4 never (these launches join the main path's);
+   then one drug-drug step's gradients through K6 against its plain
+   version at "default", and with ``remat`` against without.
 
 The paired kernels K1/K2 (forward) and K3/K4 (backward) share one sweep
 (``decagon_tpu_torch/csrc/paired_core.cuh``): a bf16 operand pass, then
@@ -214,7 +234,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
 
 T0 = time.perf_counter()
@@ -276,9 +300,13 @@ SPARSE_GRAD_TOL = {"highest": 1e-4, "default": STEP_GRAD_TOL}
 REMAT_TOL = 1e-6
 SPARSE_TRAIN_STEPS = {(1, 1): 2, (0, 0): 1}
 SPARSE_CHUNK, SPARSE_WINDOWS = 8, 2
+# Phase 16's Trainer runs at "default" only (its "highest" Trainer was cut
+# to keep the run in its time budget; bench_sparse_regime.py's pallas_f32
+# times "highest" at every size).
+SPARSE_TRAINER_PRECISIONS = ("default",)
 TRAIN_STEPS = {(1, 1): 4, (0, 0): 2}
 TRAINER_CHUNK = 32
-TRAINER_WINDOWS = 3
+TRAINER_WINDOWS = 2
 PALLAS_CHUNK = 4
 # Phase 12b: the quality run's grouped Trainer (batches an optimization
 # step, chunk in optimization steps, timed chunks after one warm-up, the
@@ -1513,17 +1541,22 @@ def sparse_model(dg, precision, **kw):
                                     spmm_precision=precision, **kw), dg)
 
 
-def check_spmm(dg, params):
+def check_spmm(dg, params, keys=None, prefix=""):
     """K6 against its plain version at both precisions on each case of
-    ``probing.spmm_cases``: error, bitwise repeatability, CUDA-event ms of the
-    kernel, the plain version and ``torch.sparse.mm`` on the same CSR (f32;
-    timed here only), and the bounds.  Returns (f32 rows, bf16 rows)."""
+    ``probing.spmm_cases`` (those of the edge types ``keys``, all if None;
+    labels led by ``prefix``): error, bitwise repeatability, the launch plan
+    the wrapper took, CUDA-event ms of the kernel, the plain version and
+    ``torch.sparse.mm`` on the same CSR (f32; timed here only), and the
+    bounds.  Returns (f32 rows, bf16 rows)."""
     import torch
 
-    from decagon_tpu_torch.ops.spmm_pallas import spmm_tiled, spmm_tiled_ref
+    from decagon_tpu_torch.ops.spmm_pallas import PLANS, spmm_tiled, spmm_tiled_ref
 
     out = {"highest": [], "default": []}
     for label, p, _, tiles in spmm_cases(dg, params):
+        if keys is not None and not any(label.startswith(f"({k})") for k in keys):
+            continue
+        label = prefix + label
         csr = torch.sparse_csr_tensor(tiles.row_ptr, tiles.col, tiles.val,
                                       size=(tiles.n_dst, tiles.n_src))
         lib = torch.sparse.mm(csr, p)
@@ -1531,7 +1564,9 @@ def check_spmm(dg, params):
         distinct = int(torch.unique(tiles.col).numel())
         e, h = tiles.nnz, p.shape[1]
         for precision in ("highest", "default"):
+            PLANS.clear()
             got = spmm_tiled(p, tiles, precision)
+            (plan,) = PLANS
             again = spmm_tiled(p, tiles, precision)
             want = spmm_tiled_ref(p, tiles, precision)
             torch.cuda.synchronize()
@@ -1543,6 +1578,7 @@ def check_spmm(dg, params):
                 case=label, precision=precision, rows=tiles.n_dst, nnz=e, H=h,
                 distinct_sources=distinct, max_abs_err=err, rel_err=err / top,
                 bitwise_repeat=bool(torch.equal(got, again)),
+                plan=dict(zip(("vec", "rows_vec", "staged"), plan[5:])),
                 ms=cuda_ms(lambda: spmm_tiled(p, tiles, precision), reps=SPMM_REPS),
                 plain_ms=cuda_ms(lambda: spmm_tiled_ref(p, tiles, precision), reps=2),
                 library_ms=library_ms,
@@ -1562,8 +1598,8 @@ def check_spmm(dg, params):
 def sparse_training(graph, splits, dg, seed):
     """The sparse regime through the entry points a user calls, launch
     counters set to 0 first: ``make_train_step`` at "default" (2
-    drug-drug steps, 1 PPI), the ``Trainer`` at both precisions (chunks of
-    ``SPARSE_CHUNK``, one warm-up chunk and ``SPARSE_WINDOWS`` timed), and
+    drug-drug steps, 1 PPI), the ``Trainer`` at ``SPARSE_TRAINER_PRECISIONS``
+    (chunks of ``SPARSE_CHUNK``, one warm-up chunk and ``SPARSE_WINDOWS`` timed), and
     the pooled drug-drug evaluation with ``sddmm_precision="default"``.
     K6 and K5-bf16 must launch, the paired kernels never."""
     import torch
@@ -1589,7 +1625,7 @@ def sparse_training(graph, splits, dg, seed):
     summary["steps"]["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     step_launches = dict(cuda_build.LAUNCHES)
     nnz = graph_nnz(dg)
-    for precision in ("default", "highest"):
+    for precision in SPARSE_TRAINER_PRECISIONS:
         torch.cuda.reset_peak_memory_stats()
         trainer = Trainer(sparse_model(dg, precision), graph, splits, dg,
                           TrainConfig(batch_size=512, scan_chunk=SPARSE_CHUNK), seed=seed)
@@ -1628,9 +1664,9 @@ def sparse_training(graph, splits, dg, seed):
     return counts, summary, params
 
 
-def sparse_gradients(dg, params, splits, seed):
+def sparse_gradients(dg, params, splits, seed, precisions=("default", "highest")):
     """One drug-drug step's loss and gradients through K6 against its plain
-    version ("pallas_ref") at both precisions, with the same bits and
+    version ("pallas_ref") at each of ``precisions``, with the same bits and
     negatives; then the same step with ``remat`` against without it
     (the port's own draws from explicit generators): gradients, K6
     launches and peak memory of each."""
@@ -1642,7 +1678,7 @@ def sparse_gradients(dg, params, splits, seed):
     cfg = TrainConfig(batch_size=512)
     rows, cols = _batch(splits, (1, 1), 7, cfg.batch_size, seed + 100)
     out = {}
-    for precision in ("default", "highest"):
+    for precision in precisions:
         model = sparse_model(dg, precision)
         gen = torch.Generator(device="cuda").manual_seed(seed + 100)
         bits, u = _draws(dg, params, model, cfg, gen)
@@ -1686,6 +1722,220 @@ def sparse_gradients(dg, params, splits, seed):
     if not (worst <= REMAT_TOL and abs(l0 - l1) <= REMAT_TOL * abs(l0)):
         raise AssertionError(f"remat changes the step: {worst:.3g} of a leaf's max")
     return out
+
+
+# ---- phase 21: the sparse regime beyond the paper's scale -------------------
+#
+# ``bench_sparse_regime.py``'s ``beyond_paper`` config (1,600 drugs), built
+# on the host by a process of its own (``--prepare-beyond``) while phases
+# 3-20 (a) run on the card, then moved there.
+BEYOND = "beyond_paper"
+BEYOND_KEYS = ("1,1",)
+# The Trainer with remat off and on: chunks of this many steps, one warm-up
+# chunk and this many timed.
+BEYOND_CHUNK, BEYOND_WINDOWS = 10, 1
+BEYOND_BUILD_TIMEOUT_S = 600
+
+
+def prepare_beyond(path: str) -> int:
+    """``--prepare-beyond PATH``: phase 21's host graph, split and device
+    graph on the CPU, through ``bench_sparse_regime``'s own building blocks,
+    saved to ``path`` with the seconds of each stage."""
+    import torch
+
+    from decagon_tpu_torch.scripts import bench_sparse_regime as sr
+
+    # Below the main process's priority: it runs beside phases 3-20 (a).
+    os.nice(10)
+    torch.set_num_threads(2)
+    cfg = sr.CONFIGS[BEYOND]
+    graph, splits, stages = sr.host_graph(cfg["n_drugs"], cfg["dd_edges"],
+                                          cfg.get("renumber", False))
+    dg = sr.sparse_device_graph(graph, splits, "cpu", stages)
+    t = time.perf_counter()
+    torch.save(dict(graph=graph, splits=splits, dg=dg, stages=stages), path + ".tmp",
+               pickle_protocol=5)
+    os.replace(path + ".tmp", path)
+    stages["save_s"] = time.perf_counter() - t
+    print(json.dumps(stages), flush=True)
+    return 0
+
+
+class BeyondBuild:
+    """The process that prepares phase 21's graph (``prepare_beyond``); it
+    is stopped, and its directory removed, on every way out of ``main``."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_beyond_")
+        self.path = os.path.join(self.dir, "graph.pt")
+        self.log = os.path.join(self.dir, "stages.json")
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--prepare-beyond", self.path],
+                stdout=out)
+
+    def result(self):
+        """(graph, splits, CPU device graph, summary): waits for the
+        process, then loads what it saved."""
+        import torch
+
+        t = time.perf_counter()
+        rc = self.proc.wait(timeout=BEYOND_BUILD_TIMEOUT_S)
+        waited = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"phase 21's host build exited with {rc}")
+        with open(self.log) as f:
+            stages = json.loads(f.read().strip().splitlines()[-1])
+        t = time.perf_counter()
+        payload = torch.load(self.path, weights_only=False)
+        summary = dict(stages_s=stages, waited_s=waited, load_s=time.perf_counter() - t)
+        return payload["graph"], payload["splits"], payload["dg"], summary
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def beyond_state(build, device):
+    """Phase 21's graph on the card: the host build's stages and wait,
+    each layout's rows, edges and longest row, the would-be drug-drug bf16
+    stack beside the card's memory, and the graph's memory there."""
+    import torch
+
+    from decagon_tpu_torch.scripts import bench_sparse_regime as sr
+
+    graph, splits, dg_host, summary = build.result()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    dg = dg_host.to(device)
+    torch.cuda.synchronize()
+    del dg_host
+    summary.update(
+        to_card_s=time.perf_counter() - t,
+        device_gib=(torch.cuda.memory_allocated() - before) / 2**30,
+        dd_stack_gib=sr.stack_gib(dg),
+        card_memory_gib=torch.cuda.get_device_properties(device).total_memory / 2**30,
+        nnz=sr.graph_nnz(dg), layouts=sr.layout_stats(dg),
+    )
+    for key, stats in summary["layouts"].items():
+        log(f"beyond_paper ({key}): {json.dumps(stats)}")
+    log(f"beyond_paper state: {json.dumps({k: v for k, v in summary.items() if k != 'layouts'})}")
+    return graph, splits, dg, summary
+
+
+def beyond_paper(build, device, seed):
+    """Phase 21 (after the paper graph's sparse state is freed): the
+    ``beyond_paper`` graph on the card; K6 against its plain version on the
+    drug-drug layouts (both layers, forward and backward, both precisions);
+    then, launch counters set to 0, the ``Trainer`` at "default" with
+    ``remat`` off and on from one state (chunks of ``BEYOND_CHUNK``: one
+    warm-up, ``BEYOND_WINDOWS`` timed; ms a step, peak GiB above the
+    graph), one grouped chunk at the quality run's ``TrainConfig``
+    (``scripts/quality_sparse_regime.py``) and one evaluation of an epoch
+    (embedding, pooled validation and test sweeps): K6 and K5 must launch,
+    K7 once an optimization step, K1-K4 never.  Then one drug-drug step's
+    gradients through K6 against its plain version, and with ``remat``
+    against without.  Returns (launch counts, summary, K6 rows)."""
+    import torch
+
+    from decagon_tpu_torch.bench import steady_state_ms
+    from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
+    from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.scripts import quality_sparse_regime as quality
+    from decagon_tpu_torch.timing import hard_sync
+    from decagon_tpu_torch.train.evaluate import AccuracyEvaluator
+    from decagon_tpu_torch.train.step import TrainConfig, make_optimizer
+    from decagon_tpu_torch.train.trainer import Trainer
+
+    graph, splits, dg, summary = beyond_state(build, device)
+    cfg = TrainConfig(batch_size=512, learning_rate=1e-3, scan_chunk=BEYOND_CHUNK)
+    # One starting state for every trainer of the phase, drawn on the card
+    # (the Trainer's own draw is on the host: ~200M weights here).
+    t = time.perf_counter()
+    params = sparse_model(dg, "default").init_params(
+        torch.Generator(device=device).manual_seed(seed), dg)
+    state = dict(params=params, opt_state=make_optimizer(cfg).init(params), global_step=0,
+                 opt_step=0)
+    hard_sync(params)
+    summary["init_s"] = time.perf_counter() - t
+    rows, bf16_rows = check_spmm(dg, state["params"], keys=BEYOND_KEYS, prefix=f"{BEYOND} ")
+    log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    cuda_build.reset_launches()
+    steps = 0
+    summary["trainer"] = {}
+    for remat in (False, True):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(sparse_model(dg, "default", remat=remat), graph, splits, dg, cfg,
+                          seed=seed, init_state=_clone(state))
+        adam_before = cuda_build.LAUNCHES["adam"]
+        timing = steady_state_ms(trainer, BEYOND_CHUNK, BEYOND_WINDOWS)
+        losses = timing.pop("losses")
+        hard_sync(trainer.params)
+        entry = dict(steps=len(losses), last_losses=losses[-4:].tolist(), **timing,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     peak_gib_above_graph=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                     adam_launches_per_step=(cuda_build.LAUNCHES["adam"] - adam_before)
+                     / len(losses))
+        summary["trainer"]["remat" if remat else "plain"] = entry
+        log(f"beyond_paper trainer (remat {remat}): {json.dumps(entry)}")
+        if not bool(torch.isfinite(losses).all()) or entry["adam_launches_per_step"] != 1:
+            raise AssertionError(f"beyond_paper trainer (remat {remat}): losses not finite or "
+                                 f"K7 not once a step: {entry}")
+        steps += len(losses)
+        del trainer
+
+    qcfg = quality.train_config(quality.TRAIN)
+    qmodel = DecagonModel(ModelConfig(**quality.MODEL), dg)
+    trainer = Trainer(qmodel, graph, splits, dg, qcfg, seed=seed, init_state=_clone(state))
+    epoch = trainer.scheduler.epoch()
+    batches = [next(epoch) for _ in range(qcfg.scan_chunk * qcfg.relation_group)]
+    torch.cuda.reset_peak_memory_stats()
+    adam_before = cuda_build.LAUNCHES["adam"]
+    t = time.perf_counter()
+    losses = trainer.train_chunk(batches, qcfg.scan_chunk).cpu()
+    grouped_s = time.perf_counter() - t
+    adam = cuda_build.LAUNCHES["adam"] - adam_before
+    summary["grouped_chunk"] = dict(
+        opt_steps=len(losses), batches=len(batches), seconds=grouped_s,
+        ms_per_grouped_step=grouped_s * 1e3 / len(losses), adam_launches=adam,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, last_losses=losses[-4:].tolist())
+    log(f"beyond_paper grouped chunk (the quality run's config, not warmed): "
+        f"{json.dumps(summary['grouped_chunk'])}")
+    if not bool(torch.isfinite(losses).all()) or adam != len(losses) or len(losses) != \
+            qcfg.scan_chunk:
+        raise AssertionError(f"beyond_paper grouped chunk: {summary['grouped_chunk']}")
+    steps += len(losses)
+    sddmm_before = cuda_build.LAUNCHES["sddmm"]
+    t = time.perf_counter()
+    evaluator = AccuracyEvaluator(qmodel, graph, splits, device=device)
+    emb = evaluator.embeddings(trainer.params, dg)
+    val = evaluator.evaluate_all_drug_drug(trainer.params, dg, embeddings=emb)
+    test = evaluator.evaluate_all_drug_drug(trainer.params, dg, use_test=True, embeddings=emb)
+    summary["evaluation"] = dict(seconds=time.perf_counter() - t, val_auroc=val.auroc,
+                                 test_auroc=test.auroc,
+                                 sddmm_launches=cuda_build.LAUNCHES["sddmm"] - sddmm_before)
+    del emb, trainer, evaluator
+    counts = dict(cuda_build.LAUNCHES)
+    summary["launches"] = counts
+    log(f"beyond_paper evaluation of an epoch: {json.dumps(summary['evaluation'])}; launches "
+        f"{counts}")
+    if counts["spmm_tiled"] <= 0 or summary["evaluation"]["sddmm_launches"] <= 0:
+        raise AssertionError(f"beyond_paper: K6 or K5 never launched: {counts}")
+    if counts["adam"] != steps:
+        raise AssertionError(f"beyond_paper: K7 launched {counts['adam']} times in {steps} "
+                             "optimization steps")
+    if counts["paired_fwd"] or counts["paired_bwd"]:
+        raise AssertionError(f"beyond_paper: a paired kernel launched: {counts}")
+    if not all(0.0 <= a <= 1.0 for a in (val.auroc, test.auroc)):
+        raise AssertionError(f"beyond_paper evaluation: AUROC {val.auroc}, {test.auroc}")
+    summary["gradients"] = sparse_gradients(dg, state["params"], splits, seed,
+                                            precisions=("default",))
+    del state, dg
+    return counts, summary, rows + bf16_rows
 
 
 # ---- phase 20: the mesh ---------------------------------------------------
@@ -1926,7 +2176,7 @@ def mesh_paper(graph, splits, dg_sparse, seed, phase16_ms):
         summary["trainer"] = dict(
             steps=len(losses), chunk=MESH_CHUNK, last_losses=losses[-4:].tolist(),
             shard_weights=trainer.shard_weights, **config_metrics(graph_nnz(sg), timing),
-            phase16_highest_ms_per_step_median=phase16_ms,
+            phase16_default_ms_per_step_median=phase16_ms,
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
         summary["eval"] = dict(auroc=scores.auroc, auprc=scores.auprc, apk=scores.apk,
                                seconds=time.perf_counter() - t)
@@ -2551,7 +2801,11 @@ def kernel_entry(name, source, replaces, launches, rows, library_rows=None, case
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="weights and random pairs")
+    ap.add_argument("--prepare-beyond", metavar="PATH", default=None,
+                    help="(internal) build phase 21's graph on the host into PATH")
     args = ap.parse_args(argv)
+    if args.prepare_beyond:
+        return prepare_beyond(args.prepare_beyond)
 
     phase("device")
     import torch
@@ -2560,13 +2814,25 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from decagon_tpu_torch import resolve_device
-    from decagon_tpu_torch.ops import cuda_build
 
     device = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = card()
     log(f"{kind} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    beyond = BeyondBuild()
+    try:
+        return run_phases(args, device, kind, count, beyond)
+    finally:
+        beyond.stop()
+
+
+def run_phases(args, device, kind, count, beyond) -> int:
+    """Phases 2-21 (``main`` has run phase 1 and started phase 21's host
+    build)."""
+    import torch
+
+    from decagon_tpu_torch.ops import cuda_build
 
     phase("build")
     cuda_build.library()
@@ -2650,9 +2916,14 @@ def main(argv=None) -> int:
     phase("mesh (a): paper scale, a (1, 1) NCCL mesh")
     mesh_counts, mesh_paper_summary, mesh_k6_rows, mesh_k5_rows = mesh_paper(
         graph, splits, dg_sparse, args.seed,
-        sparse_train["trainer"]["highest"]["ms_per_step_median"])
+        sparse_train["trainer"]["default"]["ms_per_step_median"])
     del dg_sparse
     torch.cuda.empty_cache()
+
+    phase("sparse regime beyond the paper's scale (1,600 drugs)")
+    beyond_counts, beyond_summary, beyond_k6_rows = beyond_paper(beyond, device, args.seed)
+    torch.cuda.empty_cache()
+    log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     phase("small-input sparse checks")
     small_sparse(device)
@@ -2669,10 +2940,11 @@ def main(argv=None) -> int:
     phase("done")
     launches = {name: counts[name] + train_counts[name] + trainer_counts[name]
                 + chunk_counts[name] + grouped_counts[name] + sparse_counts[name]
-                + mesh_counts[name] for name in train_counts}
+                + mesh_counts[name] + beyond_counts[name] for name in train_counts}
     log(f"launches on the main path: serve {counts}, train {train_counts}, trainer "
         f"{trainer_counts}, trainer chunks of phase 12 {chunk_counts}, grouped trainer "
-        f"{grouped_counts}, sparse {sparse_counts}, mesh {mesh_counts}")
+        f"{grouped_counts}, sparse {sparse_counts}, mesh {mesh_counts}, beyond the paper's "
+        f"scale {beyond_counts}")
     # K7's line: the main path's leaf tree (its library call, over the same
     # leaves, keeps f32 moments); the one-leaf cases are listed beside it.
     # P6's bf16 case has its own line.
@@ -2683,7 +2955,7 @@ def main(argv=None) -> int:
         "train_steps_phase7": train_counts["adam"], "trainer_phase10": trainer_counts["adam"],
         "trainer_chunks_phase12": chunk_counts["adam"],
         "grouped_trainer_phase12b": grouped_counts["adam"], "sparse_phase16": sparse_counts["adam"],
-        "mesh_phase20a": mesh_counts["adam"]})
+        "mesh_phase20a": mesh_counts["adam"], "beyond_paper_phase21": beyond_counts["adam"]})
     report = {"kernels": [
         kernel_entry("paired_fwd", "decagon_tpu_torch/csrc/paired_fwd.cu",
                      "decagon_tpu/ops/spmm_paired.py:82", launches["paired_fwd"],
@@ -2703,7 +2975,7 @@ def main(argv=None) -> int:
         kernel_entry("spmm_tiled", "decagon_tpu_torch/csrc/spmm_tiled.cu",
                      "decagon_tpu/ops/spmm_pallas.py:42", launches["spmm_tiled"],
                      spmm_rows, library_rows=spmm_rows,
-                     cases=spmm_rows + spmm_bf16_rows + mesh_k6_rows),
+                     cases=spmm_rows + spmm_bf16_rows + mesh_k6_rows + beyond_k6_rows),
         k7,
         # P6: the bf16 instantiation of K7 at the probe's shape, its
         # launches those of its own timing path in phase 11.
@@ -2719,6 +2991,7 @@ def main(argv=None) -> int:
     ], "train": train_summary, "trainer": trainer_summary, "optimizer_chunks": chunk_summary,
         "grouped_trainer": grouped_summary,
         "dummy_gate": gate, "sparse_state": sparse_summary, "sparse_training": sparse_train,
+        "beyond_paper": beyond_summary,
         "framework_shell": shell,
         "mesh": {"paper": mesh_paper_summary, "ranks": mesh_ranks_summary}}
     print(json.dumps(report))

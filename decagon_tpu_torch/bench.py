@@ -49,7 +49,12 @@ and the kernels that take the most device time.
 Prints one JSON line: ``metric``, ``value``, ``unit``, ``vs_baseline``,
 ``hbm_roofline_fraction``, ``configs``, ``note`` (which config is the
 headline), and ``torch``, ``device`` (the ``nvidia-smi`` name and power
-limit) and ``backend``.  Runs on CUDA unless
+limit) and ``backend``.  ``configs`` also holds ``sparse_regime_ref``, as
+the JAX bench's does: the ``workload``, ``xla``, ``pallas_bf16`` and
+``pallas_vs_xla`` of the sparse regime's record
+(``artifacts/perf/torch_sparse_regime_bench.json``, written on the card by
+``decagon_tpu_torch/scripts/bench_sparse_regime.py``), left out when the
+file is missing; a malformed file is an error.  Runs on CUDA unless
 ``--device cpu`` is given.
 """
 
@@ -58,16 +63,21 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from decagon_tpu_torch import resolve_device
 from decagon_tpu_torch.timing import hard_sync
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPARSE_REGIME = os.path.join(ROOT, "artifacts", "perf", "torch_sparse_regime_bench.json")
+SPARSE_REGIME_FIELDS = ("workload", "xla", "pallas_bf16", "pallas_vs_xla")
 REFERENCE_ITER_LATENCY_S = 0.0055  # decagon_iteration_results_0.csv Latency
 HBM_BYTES_S = 3.35e12  # H100 SXM
 TOY_CHUNK, TOY_WINDOWS = 100, 6
@@ -117,13 +127,15 @@ def steady_state_ms(trainer, chunk: int, windows: int) -> dict:
     }
 
 
-def device_profile(trainer, steps: int, step_ms: float, top: int = 12) -> dict:
+def device_profile(trainer, steps: int, step_ms: float, top: int = 12,
+                   groups: Optional[Dict[str, Tuple[str, ...]]] = None) -> dict:
     """``steps`` more steps in one chunk under ``torch.profiler`` (device
     activity only; its first use in a process costs several seconds of
     set-up): the device's busy ms a step (kernel self time summed; one
     stream), its idle share against ``step_ms`` (the unprofiled chunks'
-    ms a step), and the ``top`` kernels by device time (ms a step and
-    launches a step)."""
+    ms a step), the ``top`` kernels by device time (ms a step and
+    launches a step) and, for each of ``groups`` (a name and the kernel
+    names it sums), that group's ms a step."""
     from torch.profiler import ProfilerActivity, profile
 
     batches = list(itertools.islice(trainer.scheduler.epoch(), steps))
@@ -139,6 +151,9 @@ def device_profile(trainer, steps: int, step_ms: float, top: int = 12) -> dict:
         "steps": len(batches), "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / step_ms,
         "top": [{"name": name[:80], "ms_per_step": ms / len(batches),
                  "launches_per_step": n / len(batches)} for ms, n, name in kernels[:top]],
+        "groups_ms_per_step": {
+            group: sum(ms for ms, _, name in kernels if any(k in name for k in names))
+            / len(batches) for group, names in (groups or {}).items()},
     }
 
 
@@ -337,6 +352,23 @@ def bench_fullscale(device) -> dict:
     return configs, headline
 
 
+def sparse_regime_ref(path: str = SPARSE_REGIME):
+    """The sparse regime's summary fields, lifted from its record as
+    ``bench.py`` lifts them from the JAX package's, with the record's
+    source; None when there is no record.  Raises ``ValueError`` for a
+    record that is not a JSON object holding every field."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        record = json.load(f)  # json.JSONDecodeError is a ValueError
+    if not isinstance(record, dict) or any(k not in record for k in SPARSE_REGIME_FIELDS):
+        raise ValueError(f"{path}: a record of bench_sparse_regime.py holds "
+                         f"{', '.join(SPARSE_REGIME_FIELDS)}")
+    return {"source": f"{os.path.relpath(path, ROOT)} "
+                      "(decagon_tpu_torch/scripts/bench_sparse_regime.py)",
+            **{k: record[k] for k in SPARSE_REGIME_FIELDS}}
+
+
 def _device_name(device) -> str:
     if device.type != "cuda":
         return str(device)
@@ -351,6 +383,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    sparse_ref = sparse_regime_ref()
     _progress("toy config")
     toy = bench_toy(device)
     _progress("paper-scale configs")
@@ -363,7 +396,8 @@ def main(argv=None) -> int:
         "unit": "edges/s",
         "vs_baseline": REFERENCE_ITER_LATENCY_S * 1e3 / toy["ms_per_step_min"],
         "hbm_roofline_fraction": headline["hbm_util"],
-        "configs": {"toy_dense": toy, **full},
+        "configs": {"toy_dense": toy, **full,
+                    **({"sparse_regime_ref": sparse_ref} if sparse_ref else {})},
         "torch": torch.__version__,
         "device": _device_name(device),
         "backend": device.type,

@@ -232,6 +232,29 @@ class DeviceGraph:
     def decoder_name(self, edge_type: EdgeType) -> str:
         return dict(self.decoders)[etkey(edge_type)]
 
+    def to(self, device: DeviceLike) -> "DeviceGraph":
+        """The same graph with every tensor (the CSR layouts' too) on
+        ``device``: a graph built on the host in one process can then be
+        moved to the card in another."""
+        dev = resolve_device(device)
+        return dataclasses.replace(
+            self,
+            adj={key: _moved(a, dev) for key, a in self.adj.items()},
+            features={key: None if f is None else f.to(dev) for key, f in self.features.items()},
+            neg_cdf={key: c.to(dev) for key, c in self.neg_cdf.items()},
+            fused=None if self.fused is None else _moved(self.fused, dev),
+            device=dev,
+        )
+
+
+def _moved(entry, dev: torch.device):
+    """A copy of a dataclass of tensors and CSR layouts on ``dev``."""
+    return dataclasses.replace(entry, **{
+        f.name: getattr(entry, f.name).to(dev)
+        for f in dataclasses.fields(entry)
+        if isinstance(getattr(entry, f.name), (torch.Tensor, CsrEdges))
+    })
+
 
 def build_device_graph(
     graph: RelationGraph,

@@ -26,12 +26,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Dict, Tuple
 
 import torch
 
 from decagon_tpu_torch.ops import cuda_build
-from decagon_tpu_torch.ops.tiling import CHUNK_EDGES, CHUNK_ROWS, CsrEdges
+from decagon_tpu_torch.ops.tiling import CHUNK_EDGES, CHUNK_ROWS, INT32_MAX, CsrEdges
 
 if TYPE_CHECKING:  # pragma: no cover
     from decagon_tpu_torch.graph.device import EdgeTypeAdj, FusedAdj
@@ -84,6 +84,29 @@ _STAGE_BYTES = 180 * 1024
 _STAGE_REUSE = 4
 _LAYOUT_TENSORS = ("row_ptr", "col", "val", "row_chunks", "seg_edges", "seg_dst", "seg_order",
                    "multi_row", "multi_ptr")
+
+
+# Lanes a row at most in the segment pass (a warp), whose thread index
+# ``block * 256 + thread`` reaches num_segments * 32 + 255.
+_SEGMENT_LANES = 32
+# Launches by plan since the last ``PLANS.clear()``: (n_dst, n_src, h, the
+# table's dtype, precision, vec, rows_vec, staged) -> count.
+PLANS: Dict[Tuple, int] = {}
+
+
+def check_index_range(tiles: CsrEdges, h: int) -> None:
+    """Raises unless every index K6 computes in 32 bits stays below 2^31:
+    sources, destinations, edges, partial-sum slots and the segment pass's
+    thread index.  A table row's element offset ``row * h + column`` (up to
+    ``n_src * h``, 308M elements of 1.23 GB in f32 at 2,500 drugs' drug-drug
+    layer 1) is computed in 64 bits in every pass, so ``h`` only has to fit
+    an int."""
+    counts = {"n_src": tiles.n_src, "n_dst": tiles.n_dst, "nnz": tiles.nnz,
+              "partial slots": tiles.num_slots, "h": h,
+              "segment threads": tiles.num_segments * _SEGMENT_LANES + 255}
+    for name, n in counts.items():
+        if n > INT32_MAX:
+            raise ValueError(f"spmm_tiled indexes with int32: {name} = {n} passes 2^31 - 1")
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,6 +166,7 @@ def spmm_tiled(p_flat: torch.Tensor, tiles: CsrEdges, precision: str = "highest"
             f"p_flat must be [{tiles.n_src}, H >= 1], got {tuple(p_flat.shape)}"
         )
     device = p_flat.device
+    check_index_range(tiles, p_flat.shape[1])
     layout = _layout_args(tiles, device)
     src = p_flat if p_flat.dtype in (torch.float32, torch.bfloat16) else p_flat.float()
     src = src.contiguous()
@@ -164,6 +188,9 @@ def spmm_tiled(p_flat: torch.Tensor, tiles: CsrEdges, precision: str = "highest"
         )
     cuda_build.check(status, "spmm_tiled")
     cuda_build.LAUNCHES["spmm_tiled"] += 1
+    plan = (tiles.n_dst, tiles.n_src, h, "bf16" if b16 else "f32", precision, vec, rows_vec,
+            staged)
+    PLANS[plan] = PLANS.get(plan, 0) + 1
     return out
 
 

@@ -74,7 +74,7 @@ CHUNK_EDGES = 2048
 # 32,768 and 131,072 (decagon_tpu_torch/scripts/probe_sparse_kernels.py).
 WINDOW = 131072
 
-_INT32_MAX = 2**31 - 1
+INT32_MAX = 2**31 - 1
 
 
 @dataclasses.dataclass
@@ -197,7 +197,7 @@ def build_tiles(
         raise ValueError(f"window must be >= 0, not {window}")
     keep = vals != 0.0
     src, dst, vals = src[keep], dst[keep], vals[keep]
-    if max(n_src, n_dst, src.size) > _INT32_MAX:
+    if max(n_src, n_dst, src.size) > INT32_MAX:
         raise ValueError("the CSR layout indexes with int32: sizes must stay below 2^31")
     if src.size and (src.min() < 0 or src.max() >= n_src or dst.min() < 0 or dst.max() >= n_dst):
         raise ValueError(f"edge index outside [0, {n_src}) x [0, {n_dst})")

@@ -1,7 +1,10 @@
 """The port's bench (``decagon_tpu_torch/bench.py``): its dense and
 factored configs, ported from the JAX package's ``bench.py`` (``full_dense_bf16``,
 ``full_factored_int8``), run on a small graph on the CPU, and the headline's
-choice among the stack configs."""
+choice among the stack configs, and ``sparse_regime_ref``, the sparse
+regime's record lifted into the bench's output."""
+
+import json
 
 import pytest
 import torch
@@ -171,3 +174,37 @@ def test_bf16_dense_spmm_matches_reference(monkeypatch, chunk_cells):
                        (pt.grad.numpy(), np.asarray(want))):
             err = np.abs(got.astype(np.float64) - w)
             assert (err <= 1e-5 * np.abs(w).max() + 2.0 ** -7 * np.abs(w)).all(), key
+
+
+# ``sparse_regime_ref``: the sparse regime's summary fields lifted from its
+# record, as the JAX bench lifts them from ``sparse_regime_bench.json``.
+SPARSE_RECORD = {
+    "paper_cap": {"workload": "w"}, "workload": "w", "xla": {"ms_per_step_min": 20.0},
+    "pallas_bf16": {"ms_per_step_min": 8.0}, "pallas_vs_xla": 2.5, "device": "NVIDIA H100",
+}
+
+
+def test_sparse_regime_ref_lifts_the_summary_fields(tmp_path):
+    path = tmp_path / "torch_sparse_regime_bench.json"
+    path.write_text(json.dumps(SPARSE_RECORD))
+    ref = bench.sparse_regime_ref(str(path))
+    assert set(ref) == {"source", *bench.SPARSE_REGIME_FIELDS}
+    for key in bench.SPARSE_REGIME_FIELDS:
+        assert ref[key] == SPARSE_RECORD[key]
+    assert "bench_sparse_regime.py" in ref["source"]
+    assert bench.SPARSE_REGIME.endswith("artifacts/perf/torch_sparse_regime_bench.json")
+
+
+def test_sparse_regime_ref_is_absent_without_a_record(tmp_path):
+    assert bench.sparse_regime_ref(str(tmp_path / "missing.json")) is None
+
+
+@pytest.mark.parametrize("text", [
+    "{not json", "[1, 2]",
+    json.dumps({k: v for k, v in SPARSE_RECORD.items() if k != "pallas_vs_xla"}),
+], ids=["not-json", "not-an-object", "missing-field"])
+def test_sparse_regime_ref_raises_on_a_malformed_record(tmp_path, text):
+    path = tmp_path / "torch_sparse_regime_bench.json"
+    path.write_text(text)
+    with pytest.raises(ValueError):
+        bench.sparse_regime_ref(str(path))

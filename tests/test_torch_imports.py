@@ -51,7 +51,8 @@ def test_port_and_chip_smoke_import_no_jax():
                    "predict.export", "train.active", "train.layout", "graph.ids",
                    "scripts.np_predictor_example", "parallel", "parallel.mesh",
                    "parallel.collectives", "parallel.rowshard", "parallel.sharded",
-                   "scripts.probe_mesh_step", "scripts.quality_full"):
+                   "scripts.probe_mesh_step", "scripts.quality_full",
+                   "scripts.bench_sparse_regime", "scripts.quality_sparse_regime"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]
