@@ -29,7 +29,15 @@ Phases, each announced with the seconds elapsed since start:
    kernel must have launched and every output must be finite; then the
    validation evaluation once more through an evaluator built with
    ``sddmm_impl="pallas"``, which must launch K5 and give the same
-   metrics (its launches are counted apart from the serve run's);
+   metrics (its launches are counted apart from the serve run's); then
+   the warm pooled validation evaluation split into its parts
+   (``decagon_tpu_torch/scripts/profile_sddmm.split_evaluation``: staging,
+   the scorer's device ms from CUDA events, the device-to-host copy, the
+   host metrics), which must give the evaluator's metrics and launch K5,
+   and in each clocked call the parts and the rest of the call must add
+   up to the call's own total within 5% (whether the clocked calls' median
+   lies within the unclocked calls' interquartile range is logged: three
+   calls on a shared host cannot hold it reliably);
 6. small-input reference: on a small graph, the slice through the
    kernels against the slice through the plain versions (which the CPU
    tests hold against the JAX package), on the card, layer by layer;
@@ -83,7 +91,7 @@ Phases, each announced with the seconds elapsed since start:
    optimization step, lr 3e-3 decayed by a cosine over a few hundred
    optimization steps to a tenth, chunks of 32 steps) on phase 3's graph
    from a copy of phase 10's state; launch counters set to 0, then one
-   warm-up chunk and 2 timed ones: ms a grouped step and a batch; every
+   warm-up chunk and 1 timed one: ms a grouped step and a batch; every
    loss finite, both paired kernels launched and K7 exactly once an
    optimization step (not once a batch).  Then the quality run's evaluation
    of an epoch on the trained parameters (one embedding, the pooled
@@ -202,6 +210,21 @@ Phases, each announced with the seconds elapsed since start:
    optimization step, K1-K4 never (these launches join the main path's);
    then one drug-drug step's gradients through K6 against its plain
    version at "default", and with ``remat`` against without.
+22. ported scripts at a small size, run before phase 20 (b) on one host
+   thread while that phase's ranks start (each phase reports its own
+   failure): each of the eight ports of the JAX package's profilers and quality runs (``decagon_tpu_torch/scripts/``
+   ``quality_run``, ``profile_epoch``, ``bench_scale``,
+   ``probe_fullscale``, ``bench_paired``, ``profile_fullscale_step``,
+   ``profile_factored_ops``, ``profile_sddmm``) through its own functions,
+   on the card, at the sizes of its CPU tests (200 proteins, 40 drugs, 4
+   side effects): its record must hold the JAX artifact's fields (the
+   top-level keys of ``artifacts/perf/<name>.json``, the keys of the line
+   ``scripts/bench_scale.py`` prints, read from its text, and the JAX
+   quality CSV's columns; nothing of the JAX package is imported), every
+   number in it must be finite, and the kernels it names must have
+   launched (K7 in every trainer's steps, K5 in every evaluation, K1-K4 on
+   the paired paths, K6 where the CSR layouts are read).  The launches
+   are the scripts' own, apart from the main path's.
 
 The paired kernels K1/K2 (forward) and K3/K4 (backward) share one sweep
 (``decagon_tpu_torch/csrc/paired_core.cuh``): a bf16 operand pass, then
@@ -311,7 +334,7 @@ PALLAS_CHUNK = 4
 # Phase 12b: the quality run's grouped Trainer (batches an optimization
 # step, chunk in optimization steps, timed chunks after one warm-up, the
 # cosine's horizon in optimization steps).
-GROUP, GROUPED_CHUNK, GROUPED_WINDOWS, GROUPED_LR_STEPS = 8, 32, 2, 300
+GROUP, GROUPED_CHUNK, GROUPED_WINDOWS, GROUPED_LR_STEPS = 8, 32, 1, 300
 # Phase 12 holds the ``pallas_adam`` chunk against the plain version's to
 # this share of each leaf's largest magnitude where the two are not equal
 # bit for bit (the kernel rounds as the plain chain does); the default
@@ -322,6 +345,9 @@ PALLAS_REL_TOL = 1e-6
 # seeds; after 8 every seed swept clears it by 0.027 or more
 # (``python -m decagon_tpu_torch.scripts.quality_sweep``).
 GATE_EPOCHS = 8
+# Phase 5's split of the warm pooled evaluation: clocked calls of the
+# evaluator, each beside one without the clocks.
+SPLIT_REPS = 3
 
 PAPER = dict(
     n_proteins=19081, n_drugs=645, n_side_effects=963,
@@ -574,7 +600,21 @@ def serve(graph, splits, dg, model, params, evaluator):
     for name in ("paired_fwd", "sddmm"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the serving path")
-    return counts
+    from decagon_tpu_torch.scripts.profile_sddmm import split_evaluation
+
+    split = split_evaluation(evaluator, params, dg, emb, reps=SPLIT_REPS)
+    log(f"the warm pooled validation evaluation split: "
+        f"{json.dumps({k: split[k] for k in split['parts'] + ['parts_sum_ms', 'other_ms']})} "
+        f"against {split['whole_ms_median']:.2f} ms (interquartile {split['whole_ms_q1']:.2f}-"
+        f"{split['whole_ms_q3']:.2f}, clocked {split['clocked_total_ms_median']:.2f}; within: "
+        f"{split['clocked_within_whole_iqr']}), each call's parts and rest within "
+        f"{split['call_residual_share_max']:.2%} of its total, scorer launches "
+        f"{split['scoring_launches']}")
+    if not split["scoring_launches"].get("sddmm") or not all(
+            split[k] >= 0 for k in split["parts"]) or split["auroc"] != auto.auroc \
+            or not split["parts_add_up_in_each_call"]:
+        raise AssertionError(f"the evaluation split: {split}")
+    return counts, split
 
 
 def small_reference(device):
@@ -2292,28 +2332,14 @@ def _mesh_rank(rank, n_ranks, port, seed, device, results):
             dist.destroy_process_group()
 
 
-def mesh_ranks(device, seed):
-    """Phase 20 (b): ``MESH_RANKS`` processes (``_mesh_rank``) spawned over
-    gloo on ``device``'s card, a ``MESH_SHAPE`` mesh, the dummy config at
-    full width (hidden 64 -> 32, batch 512), "auto" with ``shard_weights``
-    and "pallas" with K6 in every rank (``tile_even_if_dense``).  Each
-    holds one deterministic step's loss and gradients and the embeddings
-    against the single process on the card (same graph built with the
-    same impl, no paired or factored stacks; same negatives); K6 must
-    launch in every rank of the "pallas" run and match its plain version
-    there on that rank's operands to ``SPMM_REL_TOL``; the ranks load the
-    library this process built.  A failed rank fails the phase; every rank
-    is joined or killed.  Returns a summary."""
-    import queue as queue_mod
-
-    import numpy as np
+def spawn_mesh_ranks(device, seed):
+    """Start phase 20 (b)'s ``MESH_RANKS`` processes (``_mesh_rank``) on
+    ``device``'s card, so that other work can run while they reach it;
+    returns what ``mesh_ranks`` waits on (``stop_mesh_ranks`` ends them)."""
     import torch
     import torch.multiprocessing as mp
 
-    from decagon_tpu_torch.graph.device import build_device_graph
-    from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
     from decagon_tpu_torch.ops import cuda_build
-    from decagon_tpu_torch.train.step import TrainConfig, make_loss_fn, value_and_grad
 
     device = torch.device(device)
     if device.type == "cuda":
@@ -2328,6 +2354,43 @@ def mesh_ranks(device, seed):
              for rank in range(MESH_RANKS)]
     for p in procs:
         p.start()
+    return dict(device=device, t0=t0, results=results, procs=procs)
+
+
+def stop_mesh_ranks(ranks):
+    """Join the ranks of ``spawn_mesh_ranks``, killing those still alive."""
+    for p in ranks["procs"]:
+        p.join(timeout=10)
+    for p in ranks["procs"]:
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=10)
+
+
+def mesh_ranks(device, seed, ranks=None):
+    """Phase 20 (b): ``MESH_RANKS`` processes (``_mesh_rank``) spawned over
+    gloo on ``device``'s card, a ``MESH_SHAPE`` mesh, the dummy config at
+    full width (hidden 64 -> 32, batch 512), "auto" with ``shard_weights``
+    and "pallas" with K6 in every rank (``tile_even_if_dense``).  Each
+    holds one deterministic step's loss and gradients and the embeddings
+    against the single process on the card (same graph built with the
+    same impl, no paired or factored stacks; same negatives); K6 must
+    launch in every rank of the "pallas" run and match its plain version
+    there on that rank's operands to ``SPMM_REL_TOL``; the ranks load the
+    library this process built.  ``ranks``: processes ``spawn_mesh_ranks``
+    started already (by default they are started here).  A failed rank
+    fails the phase; every rank is joined or killed.  Returns a summary."""
+    import queue as queue_mod
+
+    import numpy as np
+    import torch
+
+    from decagon_tpu_torch.graph.device import build_device_graph
+    from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
+    from decagon_tpu_torch.train.step import TrainConfig, make_loss_fn, value_and_grad
+
+    ranks = ranks or spawn_mesh_ranks(device, seed)
+    device, t0, results, procs = ranks["device"], ranks["t0"], ranks["results"], ranks["procs"]
     try:
         graph, splits, rows, cols, u = _dummy_world(device, seed)
         cfg = TrainConfig(batch_size=512)
@@ -2362,12 +2425,7 @@ def mesh_ranks(device, seed):
                 raise AssertionError(f"mesh rank {rank} failed:\n{payload}")
             got[rank] = payload
     finally:
-        for p in procs:
-            p.join(timeout=10)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
+        stop_mesh_ranks(ranks)
     summary = {"seconds": time.perf_counter() - t0,
                "rank_seconds": [got[r]["seconds"] for r in range(MESH_RANKS)],
                "shape": list(MESH_SHAPE),
@@ -2775,6 +2833,180 @@ def framework_shell(device, seed):
                 kernel_rel_err=checks, prob_max_diff=prob_err, prob_bound=prob_bound)
 
 
+# ---- phase 22: the ported scripts at a small size ---------------------------
+
+# The graph of the scripts' CPU tests (``tests/test_torch_scripts_profile.py``).
+SCRIPT_GRAPH = dict(n_proteins=200, n_drugs=40, n_side_effects=4, min_edges_per_relation=20,
+                    total_drugdrug_edges=800, ppi_attachment=5, seed=7)
+# The JAX artifact each script's record keeps the fields of.
+JAX_ARTIFACTS = {"profile_epoch": "epoch_profile", "bench_paired": "paired_bench",
+                 "profile_fullscale_step": "fullscale_step_profile",
+                 "profile_factored_ops": "paired_op_profile", "profile_sddmm": "sddmm_profile"}
+
+
+def jax_fields(name):
+    """The JAX fields of ``name``'s record: the top-level keys of its JAX
+    artifact (plain JSON), for ``bench_scale``, which writes no file, the
+    keys of the JSON line ``scripts/bench_scale.py`` prints (read from its
+    text), for ``quality_run`` the JAX quality CSV's columns."""
+    import ast
+    import csv
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    if name == "quality_run":
+        with open(os.path.join(root, "artifacts", "quality", "dummy_metrics.csv")) as f:
+            return tuple(next(csv.reader(f)))
+    if name == "bench_scale":
+        with open(os.path.join(root, "scripts", "bench_scale.py")) as f:
+            tree = ast.parse(f.read())
+        (line,) = [n.args[0] for n in ast.walk(tree) if isinstance(n, ast.Call)
+                   and getattr(n.func, "attr", None) == "dumps" and isinstance(n.args[0], ast.Dict)]
+        return tuple(k.value for k in line.keys)
+    with open(os.path.join(root, "artifacts", "perf", f"{JAX_ARTIFACTS[name]}.json")) as f:
+        return tuple(json.load(f))
+
+
+def _numbers(tree, path=""):
+    """(path, value) of every number in a record."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _numbers(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _numbers(v, f"{path}[{i}]")
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield path, tree
+
+
+def _script_record(name, record, fields, kernels, launches):
+    """Raise unless ``record`` holds ``fields``, every number in it is
+    finite and every kernel of ``kernels`` launched (``launches``)."""
+    import math
+
+    missing = [f for f in fields if f not in record]
+    bad = [p for p, v in _numbers(record) if not math.isfinite(v)]
+    silent = [k for k in kernels if not launches.get(k)]
+    if missing or bad or silent:
+        raise AssertionError(f"{name}: fields {missing} missing, {bad[:5]} not finite, "
+                             f"kernels {silent} never launched ({launches})")
+    log(f"{name}: {len(fields)} JAX fields, launches {json.dumps(launches)}")
+
+
+def ported_scripts(device):
+    """Phase 22: the eight ported scripts' functions on the card at the
+    sizes of their CPU tests, on one host thread (phase 20 (b)'s ranks
+    start on the other cores meanwhile); returns each one's seconds and
+    launches."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _ported_scripts(device)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _ported_scripts(device):
+    import csv
+    import tempfile
+
+    from decagon_tpu_torch.scripts import (
+        bench_paired, bench_scale, probe_fullscale, profile_epoch, profile_factored_ops,
+        profile_fullscale_step, profile_sddmm, quality_run,
+    )
+
+    quiet = lambda msg: None  # noqa: E731
+    out = {}
+
+    def done(name, t0, launches):
+        out[name] = dict(seconds=time.perf_counter() - t0, launches=launches)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        graph = quality_run.make_synthetic_graph(n_genes=60, n_drugs=40, n_drugdrug_types=2,
+                                                 seed=0)
+        path, (epoch, val, test) = quality_run.train_to_plateau(
+            "smoke", graph, max_epochs=2, eval_every=1, device=device, artifact_dir=tmp)
+        with open(path) as f:
+            header = next(csv.reader(f))
+        with open(path.replace(".csv", ".meta.json")) as f:
+            meta = json.load(f)
+    last = meta["evaluations"][-1]
+    launches = dict(adam=last["adam_launches_per_step"], **last["eval_launches"])
+    _script_record("quality_run", dict(meta, columns=header),
+                   ("columns", "evaluations", "aggregation", "stopped"), ("adam", "sddmm"),
+                   launches)
+    if header != list(jax_fields("quality_run")) or launches["adam"] != 1.0:
+        raise AssertionError(f"quality_run: columns {header}, K7 {launches['adam']} a step")
+    done("quality_run", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = profile_epoch.profile_epoch(device, graph_kw=dict(SCRIPT_GRAPH, planted_rank=4),
+                                      chunk=2, n_sync=2, n_pipe=2, log=quiet)
+    launches = dict(rec["timed_launches_per_step"], **rec["eval_warm_launches"])
+    _script_record("profile_epoch", rec, jax_fields("profile_epoch"), ("adam", "sddmm"),
+                   launches)
+    done("profile_epoch", t0, launches)
+
+    t0 = time.perf_counter()
+    lines = bench_scale.bench_scale(4, ["xla", "pallas"], device,
+                                    graph_kw=dict(n_proteins=200, n_drugs=40, seed=7), chunk=2,
+                                    densify_max_cells=0)
+    launches = lines[1]["launches_per_step"]
+    for line in lines:
+        _script_record("bench_scale", line, jax_fields("bench_scale"),
+                       ("adam", "spmm_tiled") if line["impl"] == "pallas" else ("adam",),
+                       line["launches_per_step"])
+    done("bench_scale", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = probe_fullscale.probe(probe_fullscale.parse_args([
+        "--relations", "4", "--proteins", "200", "--drugs", "40", "--edges", "800",
+        "--chunk", "2", "--steps", "2", "--densify-max-cells", "0", "--device", str(device)]),
+        log=quiet)
+    _script_record("probe_fullscale", rec, ("stages_s", "adj", "ms_per_step", "edges_per_s",
+                                            "hbm_after_first_step"),
+                   ("adam", "spmm_tiled"), rec["launches_per_step"])
+    done("probe_fullscale", t0, rec["launches_per_step"])
+
+    t0 = time.perf_counter()
+    rec = bench_paired.bench_paired(device, graph_kw=SCRIPT_GRAPH, chunk=2, windows=2, reps=2)
+    launches = dict(rec["ub_1,1"]["launches_per_call"]["fwdbwd_pair"],
+                    **rec["step"]["paired"]["launches_per_step"])
+    _script_record("bench_paired", rec, jax_fields("bench_paired"),
+                   ("paired_fwd", "paired_bwd", "adam"), launches)
+    done("bench_paired", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = profile_fullscale_step.profile_step(device=device, graph_kw=SCRIPT_GRAPH, reps=2)
+    launches = rec["launches_per_call"]["full_step"]
+    _script_record("profile_fullscale_step", rec, jax_fields("profile_fullscale_step"),
+                   ("adam",), launches)
+    if rec["launches_per_call"]["adam_only"] != {"adam": 1.0}:
+        raise AssertionError(f"adam_only: {rec['launches_per_call']['adam_only']}")
+    done("profile_fullscale_step", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = profile_factored_ops.profile_ops("paired", chunk=2, device=device,
+                                           graph_kw=SCRIPT_GRAPH)
+    _script_record("profile_factored_ops", rec, jax_fields("profile_factored_ops"),
+                   ("paired_fwd", "paired_bwd", "adam"), rec["launches_per_step"])
+    (plane,) = rec["planes"].values()
+    if not plane["ops"] or sum(o["share"] for o in plane["ops"]) > 1 + 1e-9:
+        raise AssertionError(f"profile_factored_ops: {plane}")
+    done("profile_factored_ops", t0, rec["launches_per_step"])
+
+    t0 = time.perf_counter()
+    rec = profile_sddmm.profile_sddmm(device, graph_kw=SCRIPT_GRAPH, log=quiet)
+    launches = dict(rec["production_auto_launches"],
+                    **rec["pallas_kernel_compiled"]["highest"]["launches_per_call"])
+    _script_record("profile_sddmm", rec, jax_fields("profile_sddmm"),
+                   ("sddmm", "sddmm_bf16"), launches)
+    done("profile_sddmm", t0, launches)
+    return out
+
+
 # Kernels whose first port was redesigned for the card (marked in the report).
 REDESIGNED = ("paired_fwd", "paired_bwd", "sddmm", "sddmm_bf16", "spmm_tiled", "adam",
               "probe_int8_bw", "probe_paired_parts", "probe_paired_orient",
@@ -2859,7 +3091,7 @@ def run_phases(args, device, kind, count, beyond) -> int:
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     phase("serve")
-    counts = serve(graph, splits, dg, model, params, evaluator)
+    counts, serve_split = serve(graph, splits, dg, model, params, evaluator)
 
     phase("small-input reference")
     small_reference(device)
@@ -2934,8 +3166,16 @@ def run_phases(args, device, kind, count, beyond) -> int:
     phase("framework shell")
     shell = framework_shell(device, args.seed)
 
+    phase(f"ported scripts at a small size, while phase 20 (b)'s {MESH_RANKS} ranks start")
+    ranks = spawn_mesh_ranks(device, args.seed)
+    try:
+        scripts = ported_scripts(device)
+    except BaseException:
+        stop_mesh_ranks(ranks)
+        raise
+
     phase(f"mesh (b): {MESH_RANKS} ranks over gloo on one card")
-    mesh_ranks_summary = mesh_ranks(device, args.seed)
+    mesh_ranks_summary = mesh_ranks(device, args.seed, ranks)
 
     phase("done")
     launches = {name: counts[name] + train_counts[name] + trainer_counts[name]
@@ -2991,7 +3231,7 @@ def run_phases(args, device, kind, count, beyond) -> int:
     ], "train": train_summary, "trainer": trainer_summary, "optimizer_chunks": chunk_summary,
         "grouped_trainer": grouped_summary,
         "dummy_gate": gate, "sparse_state": sparse_summary, "sparse_training": sparse_train,
-        "beyond_paper": beyond_summary,
+        "beyond_paper": beyond_summary, "serve_split": serve_split, "ported_scripts": scripts,
         "framework_shell": shell,
         "mesh": {"paper": mesh_paper_summary, "ranks": mesh_ranks_summary}}
     print(json.dumps(report))

@@ -65,7 +65,6 @@ import itertools
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 from typing import Dict, Optional, Tuple
@@ -73,6 +72,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from decagon_tpu_torch import resolve_device
+from decagon_tpu_torch.scripts.records import device_name, peak_gib
 from decagon_tpu_torch.timing import hard_sync
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -127,28 +127,37 @@ def steady_state_ms(trainer, chunk: int, windows: int) -> dict:
     }
 
 
-def device_profile(trainer, steps: int, step_ms: float, top: int = 12,
-                   groups: Optional[Dict[str, Tuple[str, ...]]] = None) -> dict:
+def device_profile(trainer, steps: int, step_ms: float, top: Optional[int] = 12,
+                   groups: Optional[Dict[str, Tuple[str, ...]]] = None,
+                   on_card: bool = True) -> dict:
     """``steps`` more steps in one chunk under ``torch.profiler`` (device
     activity only; its first use in a process costs several seconds of
     set-up): the device's busy ms a step (kernel self time summed; one
     stream), its idle share against ``step_ms`` (the unprofiled chunks'
     ms a step), the ``top`` kernels by device time (ms a step and
-    launches a step) and, for each of ``groups`` (a name and the kernel
-    names it sums), that group's ms a step."""
+    launches a step; ``top=None`` keeps every kernel) and, for each of
+    ``groups`` (a name and the kernel names it sums), that group's ms a
+    step; ``kernels_per_step``: every kernel the device ran, launches a
+    step.  ``on_card=False`` traces host activity instead and reads each
+    op's host self time (the CPU tests' trace); the profiler has already
+    taken each event's children out of its self time."""
     from torch.profiler import ProfilerActivity, profile
 
+    activity, kind = ((ProfilerActivity.CUDA, torch.autograd.DeviceType.CUDA) if on_card
+                      else (ProfilerActivity.CPU, torch.autograd.DeviceType.CPU))
     batches = list(itertools.islice(trainer.scheduler.epoch(), steps))
     hard_sync(trainer.params)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[activity]) as prof:
         trainer.train_chunk(batches, steps)
         hard_sync(trainer.params)
-    kernels = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [((e.self_device_time_total if on_card else e.self_cpu_time_total) / 1e3,
+                e.count, e.key) for e in prof.key_averages() if e.device_type == kind]
+    kernels = [k for k in kernels if k[0] > 0]
     busy = sum(ms for ms, _, _ in kernels) / len(batches)
     kernels.sort(reverse=True)
     return {
         "steps": len(batches), "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / step_ms,
+        "kernels_per_step": sum(n for _, n, _ in kernels) / len(batches),
         "top": [{"name": name[:80], "ms_per_step": ms / len(batches),
                  "launches_per_step": n / len(batches)} for ms, n, name in kernels[:top]],
         "groups_ms_per_step": {
@@ -193,12 +202,6 @@ def bench_toy(device) -> dict:
     return config_metrics(graph_nnz(dg), steady_state_ms(trainer, TOY_CHUNK, TOY_WINDOWS))
 
 
-def _peak_gib(device):
-    if device.type != "cuda":
-        return None
-    return torch.cuda.max_memory_allocated(device) / 2**30
-
-
 def _reset_peak(device) -> None:
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -211,7 +214,7 @@ def _stack_config(trainer, device, nnz: int, stack_bytes: int, chunk: int, windo
     t = steady_state_ms(trainer, chunk, windows)
     out = config_metrics(nnz, t)
     out["hbm_util"] = 4 * stack_bytes / (t["min_ms"] / 1e3) / HBM_BYTES_S
-    out["peak_memory_gib"] = _peak_gib(device)
+    out["peak_memory_gib"] = peak_gib(device)
     if device.type == "cuda":
         out["profile"] = device_profile(trainer, PROFILE_STEPS, t["median_ms"])
     return out
@@ -257,7 +260,7 @@ def bench_paired_sparse(graph, splits, device) -> dict:
                           seed=0)
         tp = steady_state_ms(trainer, PALLAS_CHUNK, windows)
         configs[tag] = config_metrics(nnz, tp)
-        configs[tag]["peak_memory_gib"] = _peak_gib(device)
+        configs[tag]["peak_memory_gib"] = peak_gib(device)
         if device.type == "cuda" and precision == "default":
             configs[tag]["profile"] = device_profile(trainer, PROFILE_STEPS, tp["median_ms"])
         del trainer
@@ -369,15 +372,6 @@ def sparse_regime_ref(path: str = SPARSE_REGIME):
             **{k: record[k] for k in SPARSE_REGIME_FIELDS}}
 
 
-def _device_name(device) -> str:
-    if device.type != "cuda":
-        return str(device)
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -399,7 +393,7 @@ def main(argv=None) -> int:
         "configs": {"toy_dense": toy, **full,
                     **({"sparse_regime_ref": sparse_ref} if sparse_ref else {})},
         "torch": torch.__version__,
-        "device": _device_name(device),
+        "device": device_name(device),
         "backend": device.type,
         "note": f"headline = {headline_key}: the fastest paper-scale train step (forward, "
                 "backward, Adam) of full_paired_int8 (the paired int8 mask kernels), "

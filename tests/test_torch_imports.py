@@ -52,7 +52,11 @@ def test_port_and_chip_smoke_import_no_jax():
                    "scripts.np_predictor_example", "parallel", "parallel.mesh",
                    "parallel.collectives", "parallel.rowshard", "parallel.sharded",
                    "scripts.probe_mesh_step", "scripts.quality_full",
-                   "scripts.bench_sparse_regime", "scripts.quality_sparse_regime"):
+                   "scripts.bench_sparse_regime", "scripts.quality_sparse_regime",
+                   "scripts.records", "scripts.quality_run", "scripts.profile_epoch",
+                   "scripts.bench_scale", "scripts.probe_fullscale", "scripts.bench_paired",
+                   "scripts.profile_fullscale_step", "scripts.profile_factored_ops",
+                   "scripts.profile_sddmm"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]
