@@ -203,7 +203,7 @@ Phases, each announced with the seconds elapsed since start:
    layers, forward and backward, both precisions, with the launch plan
    each call took: the rows join K6's cases); then, launch counters set to
    0, the ``Trainer`` at "default" with ``remat`` off and on from one
-   state drawn on the card (one warm-up chunk of 10 and one timed; ms a
+   state drawn on the card (one warm-up chunk of 4 and one timed; ms a
    step, peak GiB), one grouped chunk of 32 optimization steps at the
    quality run's ``TrainConfig`` (``scripts/quality_sparse_regime.py``)
    and one evaluation of an epoch: K6 and K5 must launch, K7 once an
@@ -225,6 +225,25 @@ Phases, each announced with the seconds elapsed since start:
    launched (K7 in every trainer's steps, K5 in every evaluation, K1-K4 on
    the paired paths, K6 where the CSR layouts are read).  The launches
    are the scripts' own, apart from the main path's.
+23. the dummy config's quality tools and the step and optimizer probes at
+   a small size, right after phase 22 and in the same way: the nine ports
+   ``quality_ablation`` (its ``lazy_adam`` variant), ``quality_probe``
+   (``refproto``), ``oracle_ceiling`` (host numpy), ``schedule_ablation``
+   (``bal_g8``), ``perf_probe`` ("xla" and "pallas"), ``perf_probe2``,
+   ``probe_adam``, ``probe_adam_bf16`` and ``probe_dense_layout``, each
+   through its own functions at the sizes of its CPU tests
+   (``tests/test_torch_scripts_quality.py``, ``test_torch_scripts_probes.py``):
+   the record must hold the JAX record's fields (the keys of an entry of
+   ``artifacts/quality/ablation.json``, ``schedule_ablation.json`` and
+   ``oracle_ceiling.json``, the top-level keys of
+   ``artifacts/perf/adam_probe.json`` and
+   ``artifacts/quality/adam_bf16_moments.json``; for the scripts that only
+   print, the fields of their printed lines), every number must be
+   finite, and K7 must launch once an optimization step of every trainer
+   and of ``probe_adam``'s one-pass and flat Adams, K5 in every evaluation
+   and K6 on every "pallas" line; ``probe_dense_layout``'s two bf16 forms
+   must hold the f32 product within 2^-8 of its largest magnitude (half a
+   bf16 step) and each other within 2^-7.
 
 The paired kernels K1/K2 (forward) and K3/K4 (backward) share one sweep
 (``decagon_tpu_torch/csrc/paired_core.cuh``): a bf16 operand pass, then
@@ -1773,7 +1792,7 @@ BEYOND = "beyond_paper"
 BEYOND_KEYS = ("1,1",)
 # The Trainer with remat off and on: chunks of this many steps, one warm-up
 # chunk and this many timed.
-BEYOND_CHUNK, BEYOND_WINDOWS = 10, 1
+BEYOND_CHUNK, BEYOND_WINDOWS = 4, 1
 BEYOND_BUILD_TIMEOUT_S = 600
 
 
@@ -2841,18 +2860,31 @@ SCRIPT_GRAPH = dict(n_proteins=200, n_drugs=40, n_side_effects=4, min_edges_per_
 # The JAX artifact each script's record keeps the fields of.
 JAX_ARTIFACTS = {"profile_epoch": "epoch_profile", "bench_paired": "paired_bench",
                  "profile_fullscale_step": "fullscale_step_profile",
-                 "profile_factored_ops": "paired_op_profile", "profile_sddmm": "sddmm_profile"}
+                 "profile_factored_ops": "paired_op_profile", "profile_sddmm": "sddmm_profile",
+                 "probe_adam": "adam_probe"}
+# Phase 23's JAX quality records: the file, and the entry whose keys a record
+# keeps (None: the top-level keys).
+JAX_QUALITY = {"quality_ablation": ("ablation", "base"),
+               "schedule_ablation": ("schedule_ablation", "ref_g1"),
+               "oracle_ceiling": ("oracle_ceiling", "noise_0.15"),
+               "probe_adam_bf16": ("adam_bf16_moments", None)}
 
 
 def jax_fields(name):
     """The JAX fields of ``name``'s record: the top-level keys of its JAX
     artifact (plain JSON), for ``bench_scale``, which writes no file, the
     keys of the JSON line ``scripts/bench_scale.py`` prints (read from its
-    text), for ``quality_run`` the JAX quality CSV's columns."""
+    text), for ``quality_run`` the JAX quality CSV's columns, for phase 23's
+    quality tools the keys of an entry of their JAX record (``JAX_QUALITY``)."""
     import ast
     import csv
 
     root = os.path.dirname(os.path.abspath(__file__))
+    if name in JAX_QUALITY:
+        file, entry = JAX_QUALITY[name]
+        with open(os.path.join(root, "artifacts", "quality", f"{file}.json")) as f:
+            record = json.load(f)
+        return tuple(record if entry is None else record[entry])
     if name == "quality_run":
         with open(os.path.join(root, "artifacts", "quality", "dummy_metrics.csv")) as f:
             return tuple(next(csv.reader(f)))
@@ -2892,19 +2924,24 @@ def _script_record(name, record, fields, kernels, launches):
     log(f"{name}: {len(fields)} JAX fields, launches {json.dumps(launches)}")
 
 
-def ported_scripts(device):
-    """Phase 22: the eight ported scripts' functions on the card at the
-    sizes of their CPU tests, on one host thread (phase 20 (b)'s ranks
-    start on the other cores meanwhile); returns each one's seconds and
-    launches."""
+def on_one_thread(fn, device):
+    """``fn(device)`` on one host thread: phase 20 (b)'s ranks start on the
+    other cores meanwhile."""
     import torch
 
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return _ported_scripts(device)
+        return fn(device)
     finally:
         torch.set_num_threads(threads)
+
+
+def ported_scripts(device):
+    """Phase 22: the eight ported scripts' functions on the card at the
+    sizes of their CPU tests, on one host thread; returns each one's
+    seconds and launches."""
+    return on_one_thread(_ported_scripts, device)
 
 
 def _ported_scripts(device):
@@ -3004,6 +3041,131 @@ def _ported_scripts(device):
     _script_record("profile_sddmm", rec, jax_fields("profile_sddmm"),
                    ("sddmm", "sddmm_bf16"), launches)
     done("profile_sddmm", t0, launches)
+    return out
+
+
+# ---- phase 23: the quality tools and the step and optimizer probes ----------
+
+# The graphs of their CPU tests.
+SCRIPT_DUMMY = dict(n_genes=60, n_drugs=40, n_drugdrug_types=2, seed=0)
+SCRIPT_POLY = dict(n_proteins=200, n_drugs=40, n_side_effects=4, seed=7, planted_rank=4)
+
+
+def quality_and_probes(device):
+    """Phase 23: the nine ports of the dummy config's quality tools and the
+    step and optimizer probes, on the card at the sizes of their CPU tests,
+    on one host thread; returns each one's seconds and launches."""
+    return on_one_thread(_quality_and_probes, device)
+
+
+def _trainer_rows(name, rows):
+    """Raise unless K7 launched once an optimization step and K5 in the
+    evaluation of every row; returns the last row's launches."""
+    for row in rows:
+        if row["adam_launches_per_opt_step"] != 1.0 or not row["eval_launches"].get("sddmm"):
+            raise AssertionError(f"{name}: K7 {row['adam_launches_per_opt_step']} an "
+                                 f"optimization step, evaluation launches {row['eval_launches']}")
+    return dict(adam=rows[-1]["adam_launches_per_opt_step"], **rows[-1]["eval_launches"])
+
+
+def _quality_and_probes(device):
+    from decagon_tpu_torch.scripts import (
+        oracle_ceiling, perf_probe, perf_probe2, probe_adam, probe_adam_bf16,
+        probe_dense_layout, quality_ablation, quality_probe, schedule_ablation,
+    )
+
+    quiet = lambda msg: None  # noqa: E731
+    out = {}
+
+    def done(name, t0, launches):
+        out[name] = dict(seconds=time.perf_counter() - t0, launches=launches)
+
+    t0 = time.perf_counter()
+    rec = quality_ablation.run_variant("lazy_adam", quality_ablation.VARIANTS["lazy_adam"],
+                                       max_epochs=2, eval_every=1, device=device,
+                                       graph_kw=SCRIPT_DUMMY, log=quiet)
+    launches = _trainer_rows("quality_ablation", rec["evaluations"])
+    _script_record("quality_ablation", rec, jax_fields("quality_ablation"), ("adam", "sddmm"),
+                   launches)
+    done("quality_ablation", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = quality_probe.run("refproto", epochs=2, val_frac=0.05, test_frac=0.0, device=device,
+                            graph_kw=SCRIPT_DUMMY, log=quiet)
+    launches = _trainer_rows("quality_probe", rec["evaluations"])
+    _script_record("quality_probe", rec["evaluations"][-1],
+                   ("epoch", "val_auroc", "test_auroc", "test_auprc", "seconds"),
+                   ("adam", "sddmm"), launches)
+    done("quality_probe", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = oracle_ceiling.ceiling_for(0.15, graph_kw=dict(SCRIPT_GRAPH, planted_rank=4))
+    for tag in jax_fields("oracle_ceiling"):
+        _script_record("oracle_ceiling", rec[tag], ("oracle_auroc", "oracle_auprc", "n_scored"),
+                       (), {})
+    done("oracle_ceiling", t0, {})
+
+    t0 = time.perf_counter()
+    rec = schedule_ablation.schedule_ablation(["bal_g8"], epochs=1, device=device,
+                                              graph_kw=SCRIPT_POLY, log=quiet)["bal_g8"]
+    launches = _trainer_rows("schedule_ablation", rec["epochs"])
+    _script_record("schedule_ablation", rec, jax_fields("schedule_ablation"), ("adam", "sddmm"),
+                   launches)
+    done("schedule_ablation", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = perf_probe.perf_probe(["xla", "pallas"], chunk=2, device=device,
+                                graph_kw=SCRIPT_DUMMY, reps=1, log=quiet)
+    for impl, entry in rec["impls"].items():
+        for line in perf_probe.LINES:
+            kernels = (("adam",) if line in ("full_chunked_step", "step_flat_adam") else ()) + (
+                ("spmm_tiled",) if impl == "pallas" else ())
+            _script_record(f"perf_probe {impl} {line}", entry[line],
+                           ("ms_per_step", "profile"), kernels, entry[line]["launches_per_step"])
+    launches = rec["impls"]["pallas"]["full_chunked_step"]["launches_per_step"]
+    done("perf_probe", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = perf_probe2.perf_probe2(chunk=2, device=device, graph_kw=SCRIPT_DUMMY, reps=1,
+                                  log=quiet)
+    launches = rec["full_chunked_step_launches_per_step"]
+    _script_record("perf_probe2", rec, ("full_chunked_step_ms", "encoder_fwd_det_False_ms",
+                                        "encoder_fwd_det_True_ms", "tile_block", "rng"),
+                   ("adam", "spmm_tiled"), launches)
+    done("perf_probe2", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = probe_adam.probe_adam(device=device, graph_kw=SCRIPT_GRAPH, batch_size=64, n=2,
+                                log=quiet)
+    launches = rec["launches_per_call"]
+    _script_record("probe_adam", rec, jax_fields("probe_adam"), ("adam",), launches["adam_fused"])
+    if launches["adam_fused"] != {"adam": 1.0} or launches["adam_flatten"] != {"adam": 1.0}:
+        raise AssertionError(f"probe_adam: K7 launches a call {launches}")
+    done("probe_adam", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = probe_adam_bf16.probe_adam_bf16(device=device, quality_kw=SCRIPT_POLY,
+                                          perf_kw=SCRIPT_GRAPH, epochs=1, chunk=2, chunks=1,
+                                          log=quiet)
+    launches = _trainer_rows("probe_adam_bf16", [e for dtype in probe_adam_bf16.DTYPES
+                                                 for e in rec[f"poly50_epochs_{dtype}"]])
+    _script_record("probe_adam_bf16", rec, jax_fields("probe_adam_bf16"), ("adam", "sddmm"),
+                   launches)
+    done("probe_adam_bf16", t0, launches)
+
+    t0 = time.perf_counter()
+    rec = probe_dense_layout.probe_dense_layout(device=device, graph_kw=SCRIPT_GRAPH, reps=1,
+                                                log=quiet)
+    for key in probe_dense_layout.KEYS:
+        _script_record(f"probe_dense_layout {key}", rec[key],
+                       ("einsum_ms", "mm2d_ms", "stack_gb", "out_dtype"), (), {})
+        errs = {k: rec[key][k] for k in ("einsum_max_rel_err", "mm2d_max_rel_err",
+                                          "forms_max_rel_diff")}
+        if max(errs["einsum_max_rel_err"], errs["mm2d_max_rel_err"]) > 2 ** -8 or \
+                errs["forms_max_rel_diff"] > 2 ** -7:
+            raise AssertionError(f"probe_dense_layout {key}: the forms against the f32 "
+                                 f"product and each other: {errs}")
+    done("probe_dense_layout", t0, {})
     return out
 
 
@@ -3170,6 +3332,9 @@ def run_phases(args, device, kind, count, beyond) -> int:
     ranks = spawn_mesh_ranks(device, args.seed)
     try:
         scripts = ported_scripts(device)
+        phase("the dummy config's quality tools and the step and optimizer probes at a small "
+              "size")
+        quality_probes = quality_and_probes(device)
     except BaseException:
         stop_mesh_ranks(ranks)
         raise
@@ -3232,6 +3397,7 @@ def run_phases(args, device, kind, count, beyond) -> int:
         "grouped_trainer": grouped_summary,
         "dummy_gate": gate, "sparse_state": sparse_summary, "sparse_training": sparse_train,
         "beyond_paper": beyond_summary, "serve_split": serve_split, "ported_scripts": scripts,
+        "quality_and_probe_scripts": quality_probes,
         "framework_shell": shell,
         "mesh": {"paper": mesh_paper_summary, "ranks": mesh_ranks_summary}}
     print(json.dumps(report))

@@ -130,39 +130,52 @@ def steady_state_ms(trainer, chunk: int, windows: int) -> dict:
 def device_profile(trainer, steps: int, step_ms: float, top: Optional[int] = 12,
                    groups: Optional[Dict[str, Tuple[str, ...]]] = None,
                    on_card: bool = True) -> dict:
-    """``steps`` more steps in one chunk under ``torch.profiler`` (device
-    activity only; its first use in a process costs several seconds of
-    set-up): the device's busy ms a step (kernel self time summed; one
-    stream), its idle share against ``step_ms`` (the unprofiled chunks'
-    ms a step), the ``top`` kernels by device time (ms a step and
-    launches a step; ``top=None`` keeps every kernel) and, for each of
-    ``groups`` (a name and the kernel names it sums), that group's ms a
-    step; ``kernels_per_step``: every kernel the device ran, launches a
-    step.  ``on_card=False`` traces host activity instead and reads each
-    op's host self time (the CPU tests' trace); the profiler has already
-    taken each event's children out of its self time."""
+    """``steps`` more steps of ``trainer`` in one chunk under
+    ``profile_call``."""
+    batches = list(itertools.islice(trainer.scheduler.epoch(), steps))
+    hard_sync(trainer.params)
+
+    def chunk():
+        trainer.train_chunk(batches, steps)
+        return trainer.params
+
+    return profile_call(chunk, len(batches), step_ms, top, groups, on_card)
+
+
+def profile_call(fn, steps: int, step_ms: float, top: Optional[int] = 12,
+                 groups: Optional[Dict[str, Tuple[str, ...]]] = None,
+                 on_card: bool = True) -> dict:
+    """One call of ``fn`` (``steps`` steps; it returns the tensors to wait
+    for) under ``torch.profiler`` (device activity only; its first use in a
+    process costs several seconds of set-up): the device's busy ms a step
+    (kernel self time summed; one stream), its idle share against
+    ``step_ms`` (the unprofiled calls' ms a step), the ``top`` kernels by
+    device time (ms a step and launches a step; ``top=None`` keeps every
+    kernel) and, for each of ``groups`` (a name and the kernel names it
+    sums), that group's ms a step; ``kernels_per_step``: every kernel the
+    device ran, launches a step.  ``on_card=False`` traces host activity
+    instead and reads each op's host self time (the CPU tests' trace); the
+    profiler has already taken each event's children out of its self
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     activity, kind = ((ProfilerActivity.CUDA, torch.autograd.DeviceType.CUDA) if on_card
                       else (ProfilerActivity.CPU, torch.autograd.DeviceType.CPU))
-    batches = list(itertools.islice(trainer.scheduler.epoch(), steps))
-    hard_sync(trainer.params)
     with profile(activities=[activity]) as prof:
-        trainer.train_chunk(batches, steps)
-        hard_sync(trainer.params)
+        hard_sync(fn())
     kernels = [((e.self_device_time_total if on_card else e.self_cpu_time_total) / 1e3,
                 e.count, e.key) for e in prof.key_averages() if e.device_type == kind]
     kernels = [k for k in kernels if k[0] > 0]
-    busy = sum(ms for ms, _, _ in kernels) / len(batches)
+    busy = sum(ms for ms, _, _ in kernels) / steps
     kernels.sort(reverse=True)
     return {
-        "steps": len(batches), "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / step_ms,
-        "kernels_per_step": sum(n for _, n, _ in kernels) / len(batches),
-        "top": [{"name": name[:80], "ms_per_step": ms / len(batches),
-                 "launches_per_step": n / len(batches)} for ms, n, name in kernels[:top]],
+        "steps": steps, "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / step_ms,
+        "kernels_per_step": sum(n for _, n, _ in kernels) / steps,
+        "top": [{"name": name[:80], "ms_per_step": ms / steps,
+                 "launches_per_step": n / steps} for ms, n, name in kernels[:top]],
         "groups_ms_per_step": {
             group: sum(ms for ms, _, name in kernels if any(k in name for k in names))
-            / len(batches) for group, names in (groups or {}).items()},
+            / steps for group, names in (groups or {}).items()},
     }
 
 

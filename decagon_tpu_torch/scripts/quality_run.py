@@ -25,7 +25,8 @@ these sizes every edge type gets a dense stack, so "auto" aggregates with
 the sidecar records the form each edge type took (``resolve_impl``).
 
 Writes ``artifacts/quality/torch_{tag}_metrics.csv`` (the JAX script's
-columns, never the JAX run's ``{tag}_metrics.csv``) and
+columns, never the JAX run's ``{tag}_metrics.csv``; the tag is the config's
+name, ``{name}_seed{seed}`` for a seed other than 0) and
 ``torch_{tag}_metrics.meta.json``: the configuration, the card's
 ``nvidia-smi`` name and power limit, the torch version, each edge type's
 aggregation form, why the run stopped, and per evaluation the epochs
@@ -204,10 +205,13 @@ def run(name: str, device=None, artifact_dir: Optional[str] = None,
         max_seconds: Optional[float] = None, seed: int = 0):
     """One config to its plateau; asserts the gate on the final test AUROC,
     as the JAX script does.  ``seed``: ``train_to_plateau``'s (the trainer's
-    and, plus one, the split's); the JAX script runs seed 0."""
+    and, plus one, the split's); the JAX script runs seed 0.  Another seed's
+    files are tagged ``{name}_seed{seed}``, so seeds run side by side into
+    one directory keep their own."""
     graph = make_graph(name)
     path, (epoch, val, test) = train_to_plateau(
-        name, graph, max_epochs=CONFIGS[name]["max_epochs"], seed=seed, device=device,
+        name if seed == 0 else f"{name}_seed{seed}", graph,
+        max_epochs=CONFIGS[name]["max_epochs"], seed=seed, device=device,
         artifact_dir=artifact_dir, max_seconds=max_seconds,
     )
     print(

@@ -7,6 +7,8 @@ tensors it is given.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -28,3 +30,16 @@ def hard_sync(tree) -> None:
     run (``torch.cuda.synchronize`` on each of their devices)."""
     for device in _cuda_devices(tree, set()):
         torch.cuda.synchronize(device)
+
+
+def timed_ms(fn, *args, reps: int = 8, warmup: int = 1) -> float:
+    """Min-of-``reps`` wall time of ``fn(*args)`` in ms, each call synced
+    (``hard_sync`` of its result)."""
+    for _ in range(warmup):
+        hard_sync(fn(*args))
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        hard_sync(fn(*args))
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3

@@ -12,7 +12,7 @@ same rows, bar ``Seconds``.
 (c) A real run at a small size on the CPU: the CSV's columns and the
 sidecar's fields.
 (d) The checked-in card trajectories (seed 0 of both configs, and the
-dummy config's seeds 1-3): each sidecar names the card and says
+dummy config's seeds 1-7): each sidecar names the card and says
 why the run stopped, the CSV's validation column reproduces that stop, K7
 launched once a step and K5 in every evaluation; the 50-relation run ends
 at a final test AUROC of at least the JAX gate's 0.74.  The dummy run does
@@ -21,9 +21,9 @@ above the JAX run's at every one of its 28 evaluations, on the same edges),
 and ``quality_run.py``'s own assertion of the gate failed on the card; no
 test here claims that gate for it.
 (e) The CPU seed runs of ``tests/torch_quality_seeds.py`` (the JAX
-reference's dummy config over four seeds, and its 50-relation graph for
+reference's dummy config over eight seeds, and its 50-relation graph for
 10 epochs): each record's rows, stops and summary agree; the harness runs either package at
-a small size.
+a small size and merges a run into its record by seed.
 """
 
 import ast
@@ -123,6 +123,22 @@ def test_the_run_needs_the_card_unless_told_otherwise(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_q.main(["dummy", "--artifact-dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("seed,tag", [(0, "dummy"), (4, "dummy_seed4")])
+def test_a_seed_keeps_its_own_files(seed, tag, monkeypatch):
+    """Seeds run side by side into one directory write files of their own
+    (``torch_dummy_seed4_metrics.*``); seed 0 keeps the JAX script's name."""
+    class Metrics:
+        auroc = auprc = apk = 0.9
+
+    tags = []
+    monkeypatch.setattr(port_q, "make_graph", lambda name: None)
+    monkeypatch.setattr(port_q, "train_to_plateau",
+                        lambda t, graph, **kw: tags.append((t, kw["seed"]))
+                        or (f"torch_{t}_metrics.csv", (1, Metrics, Metrics)))
+    port_q.run("dummy", device="cpu", seed=seed)
+    assert tags == [(tag, seed)]
 
 
 # ---- (b) the plateau rule --------------------------------------------------
@@ -239,6 +255,69 @@ def test_the_seed_harness_runs_either_package_at_a_small_size(package):
     assert run["meets_gate"] == (run["final_test_auroc"] >= port_q.GATE)
 
 
+def _seed_run(seed, final):
+    return dict(seed=seed, rows=[], epochs=1, stopped="max_epochs reached",
+                final_test_auroc=final, meets_gate=final >= port_q.GATE, seconds=1.0)
+
+
+def test_the_seed_harness_merges_by_seed(tmp_path):
+    """A seed run again replaces its own entry, the others stay, runs are
+    in seed order and the summary is over all of them; a record of other
+    settings is refused."""
+    from tests import torch_quality_seeds as seeds
+
+    config = dict(package="jax", config="dummy", graph=seeds.GRAPHS["dummy"], max_epochs=200,
+                  gate=port_q.GATE, threads=2, script="s")
+    path = str(tmp_path / "seeds.json")
+    first = seeds.merge_record(dict(config=config, runs=[_seed_run(2, 0.70), _seed_run(0, 0.80)]),
+                               path)
+    assert [r["seed"] for r in first["runs"]] == [0, 2]
+    with open(path, "w") as f:
+        json.dump(first, f)
+    merged = seeds.merge_record(
+        dict(config=dict(config, threads=1), runs=[_seed_run(5, 0.76), _seed_run(2, 0.72)]), path)
+    assert [(r["seed"], r["final_test_auroc"]) for r in merged["runs"]] == [
+        (0, 0.80), (2, 0.72), (5, 0.76)]
+    assert merged["final_test_auroc"] == dict(min=0.72, max=0.80, mean=pytest.approx(0.76),
+                                              meeting_gate=2, seeds=3)
+    with pytest.raises(ValueError, match="max_epochs"):
+        seeds.merge_record(dict(config=dict(config, max_epochs=10), runs=[_seed_run(1, 0.7)]),
+                           path)
+
+
+def test_the_gate_rule_over_eight_seeds():
+    """``--rule`` over the checked-in records of seeds 0-7: each seed's
+    validation AUROC at epoch 100 (or the last epoch both packages
+    evaluated), and the two parts' statistics, computed here again with
+    numpy."""
+    import numpy as np
+
+    from tests import torch_quality_seeds as seeds
+
+    rule = seeds.gate_rule(range(8))
+    table = rule["table"]
+    assert [r["seed"] for r in table] == list(range(8))
+    for r in table:
+        assert r["epoch"] <= 100 and (r["epoch"] == 100 or r["epoch"] == min(r["port_stop"],
+                                                                              r["jax_stop"]))
+        assert r["val_diff"] == pytest.approx(r["val_port"] - r["val_jax"])
+    d = np.array([r["val_diff"] for r in table])
+    a = rule["a_validation"]
+    assert a["mean_diff"] == pytest.approx(d.mean())
+    assert a["se"] == pytest.approx(d.std(ddof=1) / np.sqrt(8))
+    assert a["holds"] == (abs(d.mean()) <= 2 * a["se"])
+    p = np.array([r["test_port"] for r in table])
+    j = np.array([r["test_jax"] for r in table])
+    b = rule["b_final_test"]
+    assert b["diff"] == pytest.approx(p.mean() - j.mean())
+    assert b["se_welch"] == pytest.approx(np.sqrt(p.var(ddof=1) / 8 + j.var(ddof=1) / 8))
+    assert b["holds"] == (abs(b["diff"]) <= 2 * b["se_welch"])
+    assert (b["meeting_gate_port"], b["meeting_gate_jax"]) == (int((p >= port_q.GATE).sum()),
+                                                               int((j >= port_q.GATE).sum()))
+    assert rule["verdict"] == ("not a fault" if a["holds"] and b["holds"] else
+                               "fault" if not a["holds"] else "open")
+
+
 # ---- (d) the card trajectories ---------------------------------------------------
 
 def _plateau_stop(rows, min_delta, patience):
@@ -262,7 +341,7 @@ def _card(tag):
         return rows, json.load(f)
 
 
-@pytest.mark.parametrize("tag", list(port_q.CONFIGS) + [f"dummy_seed{n}" for n in (1, 2, 3)])
+@pytest.mark.parametrize("tag", list(port_q.CONFIGS) + [f"dummy_seed{n}" for n in range(1, 8)])
 def test_card_trajectories_are_whole(tag):
     rows, meta = _card(tag)
     name, _, seed = tag.partition("_seed")
