@@ -189,7 +189,9 @@ Phases, each announced with the seconds elapsed since start:
    every rank of the "pallas" run and held against its plain version on
    each rank's own operands, the library of phase 2 loaded, not built
    again.  The mesh launches of (a)
-   are added to the main path's.
+   are added to the main path's.  The ranks of (b) are started with phase
+   19, after the last phase whose kernel times enter the report, and do
+   their work while phases 19, 22 and 23 run here.
 21. sparse regime beyond the paper's scale, run after phase 20 (a) and
    before 17: ``decagon_tpu_torch/scripts/bench_sparse_regime.py``'s
    ``beyond_paper`` config (19,081 proteins, 1,600 drugs, 963 side effects
@@ -211,8 +213,8 @@ Phases, each announced with the seconds elapsed since start:
    then one drug-drug step's gradients through K6 against its plain
    version at "default", and with ``remat`` against without.
 22. ported scripts at a small size, run before phase 20 (b) on one host
-   thread while that phase's ranks start (each phase reports its own
-   failure): each of the eight ports of the JAX package's profilers and quality runs (``decagon_tpu_torch/scripts/``
+   thread while that phase's ranks work (they start with phase 19; each
+   phase reports its own failure): each of the eight ports of the JAX package's profilers and quality runs (``decagon_tpu_torch/scripts/``
    ``quality_run``, ``profile_epoch``, ``bench_scale``,
    ``probe_fullscale``, ``bench_paired``, ``profile_fullscale_step``,
    ``profile_factored_ops``, ``profile_sddmm``) through its own functions,
@@ -229,7 +231,7 @@ Phases, each announced with the seconds elapsed since start:
    a small size, right after phase 22 and in the same way: the nine ports
    ``quality_ablation`` (its ``lazy_adam`` variant), ``quality_probe``
    (``refproto``), ``oracle_ceiling`` (host numpy), ``schedule_ablation``
-   (``bal_g8``), ``perf_probe`` ("xla" and "pallas"), ``perf_probe2``,
+   (``bal_g8``), ``perf_probe`` ("pallas"), ``perf_probe2``,
    ``probe_adam``, ``probe_adam_bf16`` and ``probe_dense_layout``, each
    through its own functions at the sizes of its CPU tests
    (``tests/test_torch_scripts_quality.py``, ``test_torch_scripts_probes.py``):
@@ -243,7 +245,33 @@ Phases, each announced with the seconds elapsed since start:
    and of ``probe_adam``'s one-pass and flat Adams, K5 in every evaluation
    and K6 on every "pallas" line; ``probe_dense_layout``'s two bf16 forms
    must hold the f32 product within 2^-8 of its largest magnitude (half a
-   bf16 step) and each other within 2^-7.
+   bf16 step) and each other within 2^-7.  The dummy graph's trainers of
+   ``quality_run`` (phase 22), ``quality_ablation`` and ``quality_probe``
+   run one epoch each, ``perf_probe`` its "pallas" lines only (its "xla"
+   lines share their path).
+24. the mesh scripts at a small size (the sizes of
+   ``tests/test_torch_scripts_mesh.py``: 200 proteins, 40 drugs, 4 side
+   effects), each through its own functions, in three parts.  (a), in phase
+   20 (a)'s world of one NCCL rank before it is destroyed:
+   ``bench_sharded`` (the single ``Trainer`` and the (1, 1) mesh's, each
+   pipelined, synced and chunked, their first steps on the same injected
+   draws within ``MESH_LOSS_TOL``) and ``diag_sharded`` (no profile).  (b),
+   in phase 20 (b)'s ranks right after their phase 20 work (so it runs
+   while this process runs phases 19, 22 and 23): ``multihost_bench``'s (2, 2)
+   traces with f32 and bf16 row reductions and ``hlo_collectives``'
+   inventory of one step in that world, then two worlds of two ranks:
+   ``multihost_sim`` and ``multihost_overlap`` with ``comm_overlap`` on in
+   one, off in the other, and the last rank then takes the single
+   process's trace; this process holds the (2, 2) trace to it
+   (``multihost_bench.EXACT_TOL``), the inventory's activation terms to the
+   formulas, on and off to one loss head.  (c) ``scaling_model`` from the
+   checked-in records.  Every record holds its JAX fields, every number is
+   finite, and K7 launches once a step in every rank and every trainer
+   (these launches join K7's line).
+
+The line before the kernel report is ``{"phase_seconds": {...}}``: each
+phase's seconds by its number (a phase run in parts, "24a" and "24b", also
+under "24").
 
 The paired kernels K1/K2 (forward) and K3/K4 (backward) share one sweep
 (``decagon_tpu_torch/csrc/paired_core.cuh``): a bf16 operand pass, then
@@ -266,8 +294,9 @@ updates every leaf of a step in one launch: a table of up to 48 leaves
 passed by value, a run of blocks a leaf, 8 elements a thread in 16-byte
 vectors, the gradient's bf16 cast done as it is read.
 
-The second-to-last lines are the kernel report (one JSON object) and the
-``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``.
+The lines before the last are the phase seconds, the kernel report (one
+JSON object) and the ``nvidia-smi`` line; the last line is ``{"ok": true,
+"device": ...}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.  Any failure raises.
 """
@@ -379,8 +408,25 @@ SMALL = dict(
 )
 
 
-def phase(name: str) -> None:
+# (number, start) of every phase, in order: ``phase_seconds``.
+PHASES = []
+
+
+def phase(name: str, number: str) -> None:
+    PHASES.append((number, time.perf_counter() - T0))
     print(f"[{time.perf_counter() - T0:7.1f}s] phase: {name}", flush=True)
+
+
+def phase_seconds() -> dict:
+    """Each phase's seconds, up to the next phase's start; a phase run in
+    parts ("24a", "24b") also gets its sum under its number."""
+    out = {}
+    ends = [t for _, t in PHASES[1:]] + [time.perf_counter() - T0]
+    for (number, start), end in zip(PHASES, ends):
+        out[number] = out.get(number, 0.0) + end - start
+        if number[:-1].isdigit() and number[-1].isalpha():
+            out[number[:-1]] = out.get(number[:-1], 0.0) + end - start
+    return {k: round(v, 2) for k, v in out.items()}
 
 
 def log(msg: str) -> None:
@@ -2014,14 +2060,6 @@ MESH_TIMEOUT_S = 240
 MESH_DUMMY = dict(n_genes=500, n_drugs=400, n_drugdrug_types=3, seed=0)
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 class SpmmRecorder:
     """Wraps K6's wrapper to keep the operand of every call while open:
     one per (layout, width), i.e. per edge type, layer and direction."""
@@ -2201,8 +2239,10 @@ def mesh_paper(graph, splits, dg_sparse, seed, phase16_ms):
     from decagon_tpu_torch.train.step import TrainConfig
     from decagon_tpu_torch.train.trainer import Trainer
 
+    from decagon_tpu_torch.scripts.worlds import free_port
+
     device = dg_sparse.device
-    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
     try:
         mesh = make_mesh(shape=(1, 1), backend="nccl")
         torch.cuda.synchronize()
@@ -2251,6 +2291,11 @@ def mesh_paper(graph, splits, dg_sparse, seed, phase16_ms):
         k5_rows = recorded_sddmm_rows(rec, "mesh (1, 1) evaluator, relation (1, 1, 0)")
         del trainer, rec
         summary["step"], k6_rows = mesh_step(graph, splits, sg, dg_sparse, mesh, seed)
+        del sg
+        phase("mesh scripts (a): bench_sharded and diag_sharded in this world of one NCCL rank",
+              "24a")
+        summary["scripts"] = mesh_scripts_nccl(device)
+        phase("mesh (a): the world's teardown", "20a")
     finally:
         dist.destroy_process_group()
     return counts, summary, k6_rows, k5_rows
@@ -2275,14 +2320,16 @@ def _dummy_world(device, seed):
     return graph, splits, rows, cols, u
 
 
-def _mesh_rank(rank, n_ranks, port, seed, device, results):
+def _mesh_rank(rank, n_ranks, port, seed, device, results, script_ports=None):
     """One rank of phase 20 (b) on ``device`` (the card) over gloo: for "auto" (dense
     blocks, ``shard_weights``) and "pallas" (K6 on every edge type), one
     deterministic step's loss and gradients and the embeddings on the
     (2, 2) mesh; rank 0 sends them, every rank its launches and, for
     "pallas", K6 against its plain version on the step's operands of this
     rank (its round-robin slice's CSR, the backward into all of
-    ``[K * n_j]``)."""
+    ``[K * n_j]``).  Results go to ``results`` tagged with their phase:
+    20, then, given ``script_ports``, phase 24's scripts in the same world
+    and two worlds of two ranks after it (``mesh_scripts_rank``)."""
     import traceback
 
     t0 = time.perf_counter()
@@ -2343,22 +2390,34 @@ def _mesh_rank(rank, n_ranks, port, seed, device, results):
                 res["emb"] = {k: v.cpu().numpy() for k, v in emb.items()}
             out[impl] = res
         out["seconds"] = time.perf_counter() - t0
-        results.put((rank, True, out))
+        results.put((20, rank, True, out))
     except BaseException:  # reported to the parent, which fails the phase
-        results.put((rank, False, traceback.format_exc()))
+        results.put((20, rank, False, traceback.format_exc()))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return
+    if script_ports is None:
+        dist.destroy_process_group()
+        return
+    try:
+        results.put((24, rank, True, mesh_scripts_rank(rank, script_ports, device)))
+    except BaseException:  # reported to the parent, which fails phase 24
+        results.put((24, rank, False, traceback.format_exc()))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def spawn_mesh_ranks(device, seed):
+def spawn_mesh_ranks(device, seed, scripts=False):
     """Start phase 20 (b)'s ``MESH_RANKS`` processes (``_mesh_rank``) on
     ``device``'s card, so that other work can run while they reach it;
-    returns what ``mesh_ranks`` waits on (``stop_mesh_ranks`` ends them)."""
+    returns what ``mesh_ranks`` waits on (``stop_mesh_ranks`` ends them).
+    ``scripts``: the ranks go on into phase 24 (``mesh_scripts`` waits)."""
     import torch
     import torch.multiprocessing as mp
 
     from decagon_tpu_torch.ops import cuda_build
+    from decagon_tpu_torch.scripts.worlds import free_port
 
     device = torch.device(device)
     if device.type == "cuda":
@@ -2367,13 +2426,15 @@ def spawn_mesh_ranks(device, seed):
     t0 = time.perf_counter()
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
+    port = free_port()
+    # The ports of phase 24's two worlds of two ranks.
+    script_ports = [free_port(), free_port()] if scripts else None
     procs = [ctx.Process(target=_mesh_rank, args=(rank, MESH_RANKS, port, seed, str(device),
-                                                  results), daemon=True)
+                                                  results, script_ports), daemon=True)
              for rank in range(MESH_RANKS)]
     for p in procs:
         p.start()
-    return dict(device=device, t0=t0, results=results, procs=procs)
+    return dict(device=device, t0=t0, results=results, procs=procs, stash=[])
 
 
 def stop_mesh_ranks(ranks):
@@ -2384,6 +2445,37 @@ def stop_mesh_ranks(ranks):
         if p.is_alive():
             p.kill()
             p.join(timeout=10)
+
+
+def collect_ranks(ranks, stage, timeout=MESH_TIMEOUT_S):
+    """``{rank: payload}`` of every rank's ``stage`` result (messages of
+    another stage are kept for their own call); raises as soon as a rank
+    reports a failure (of any stage) or dies, or with no answer within
+    ``timeout`` seconds."""
+    import queue as queue_mod
+
+    got, deadline = {}, time.monotonic() + timeout
+    got.update((msg[1], msg[3]) for msg in ranks["stash"] if msg[0] == stage)
+    ranks["stash"] = [msg for msg in ranks["stash"] if msg[0] != stage]
+    while len(got) < MESH_RANKS:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise AssertionError(f"mesh ranks, phase {stage}: no answer within {timeout} s "
+                                 f"(answered: {sorted(got)})")
+        try:
+            msg_stage, rank, ok, payload = ranks["results"].get(timeout=min(left, 5.0))
+        except queue_mod.Empty:
+            dead = [p.exitcode for p in ranks["procs"] if p.exitcode not in (None, 0)]
+            if dead:
+                raise AssertionError(f"a mesh rank died with exit code {dead[0]}")
+            continue
+        if not ok:
+            raise AssertionError(f"mesh rank {rank} failed in phase {msg_stage}:\n{payload}")
+        if msg_stage != stage:
+            ranks["stash"].append((msg_stage, rank, ok, payload))
+            continue
+        got[rank] = payload
+    return got
 
 
 def mesh_ranks(device, seed, ranks=None):
@@ -2397,10 +2489,10 @@ def mesh_ranks(device, seed, ranks=None):
     launch in every rank of the "pallas" run and match its plain version
     there on that rank's operands to ``SPMM_REL_TOL``; the ranks load the
     library this process built.  ``ranks``: processes ``spawn_mesh_ranks``
-    started already (by default they are started here).  A failed rank
-    fails the phase; every rank is joined or killed.  Returns a summary."""
-    import queue as queue_mod
-
+    started already (by default they are started here, and ended after
+    their phase 20 results).  A failed rank fails the phase and every rank
+    is killed; ranks started with ``scripts`` go on into phase 24
+    (``mesh_scripts`` ends them).  Returns a summary."""
     import numpy as np
     import torch
 
@@ -2408,8 +2500,9 @@ def mesh_ranks(device, seed, ranks=None):
     from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
     from decagon_tpu_torch.train.step import TrainConfig, make_loss_fn, value_and_grad
 
+    own = ranks is None
     ranks = ranks or spawn_mesh_ranks(device, seed)
-    device, t0, results, procs = ranks["device"], ranks["t0"], ranks["results"], ranks["procs"]
+    device, t0 = ranks["device"], ranks["t0"]
     try:
         graph, splits, rows, cols, u = _dummy_world(device, seed)
         cfg = TrainConfig(batch_size=512)
@@ -2427,23 +2520,11 @@ def mesh_ranks(device, seed, ranks=None):
                 emb = model.embeddings(params, dg)
             want[impl] = (float(loss), {k: v.cpu().numpy() for k, v in _leaves(grads).items()},
                           {k: v.cpu().numpy() for k, v in emb.items()})
-        got, deadline = {}, time.monotonic() + MESH_TIMEOUT_S
-        while len(got) < MESH_RANKS:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise AssertionError(f"mesh ranks: no answer within {MESH_TIMEOUT_S} s "
-                                     f"(answered: {sorted(got)})")
-            try:
-                rank, ok, payload = results.get(timeout=min(left, 5.0))
-            except queue_mod.Empty:
-                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-                if dead:
-                    raise AssertionError(f"a mesh rank died with exit code {dead[0]}")
-                continue
-            if not ok:
-                raise AssertionError(f"mesh rank {rank} failed:\n{payload}")
-            got[rank] = payload
-    finally:
+        got = collect_ranks(ranks, 20)
+    except BaseException:
+        stop_mesh_ranks(ranks)
+        raise
+    if own:
         stop_mesh_ranks(ranks)
     summary = {"seconds": time.perf_counter() - t0,
                "rank_seconds": [got[r]["seconds"] for r in range(MESH_RANKS)],
@@ -2487,6 +2568,213 @@ def mesh_ranks(device, seed, ranks=None):
     log(f"mesh ranks: {summary['seconds']:.1f}s from the spawn, each rank "
         f"{[round(t, 1) for t in summary['rank_seconds']]}s from its start")
     return summary
+
+
+# ---- phase 24: the mesh scripts at a small size ------------------------------
+#
+# (a) runs in phase 20 (a)'s world of one NCCL rank before it is destroyed,
+# (b) in phase 20 (b)'s ranks after their phase 20 work (then in two worlds of
+# two ranks), checked by this process after phase 20 (b), with (c) the
+# scaling model on the host.  The sizes of the scripts' CPU tests
+# (``tests/test_torch_scripts_mesh.py``).
+#
+# Why (b) does not start its worlds with ``scripts/worlds.run_world``, as the
+# scripts do: each world of fresh processes pays some 8 s a rank to import
+# torch and reach the card, more than the phases this one's cost is taken
+# from.  Phase 20 (b)'s ranks are on the card already, so they run the
+# scripts' own rank functions in turn; their messages carry their phase
+# (20 or 24), so that ``collect_ranks`` can take each phase's in its turn.
+MESH_SCRIPT_GRAPH = dict(n_proteins=200, n_drugs=40, n_side_effects=4, seed=7, planted_rank=4)
+MESH_SCRIPT_STEPS, MESH_SCRIPT_BATCH = 3, 64
+MESH_SCRIPT_TIMING = {"pipelined": (1, 1), "synced": (1, 1), "chunked": (1, 1)}
+
+
+def jax_mesh_fields(name):
+    """The JAX fields a mesh script's record (or entry) keeps: the keys of
+    an entry of its JAX artifact, for ``diag_sharded`` those of the ``res``
+    ``scripts/diag_sharded.py`` prints (read from its text)."""
+    import ast
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    if name == "diag_sharded":
+        with open(os.path.join(root, "scripts", "diag_sharded.py")) as f:
+            tree = ast.parse(f.read())
+        return tuple(sorted({"backend", "single_cost", "sharded_cost"} | {
+            n.slice.value for n in ast.walk(tree) if isinstance(n, ast.Subscript)
+            and getattr(n.value, "id", None) == "res" and isinstance(n.slice, ast.Constant)}))
+    file, path = {"bench_sharded": ("sharded_bench_tpu", ()),
+                  "multihost_bench": ("multihost_bench", ("configs", "4proc_2x2")),
+                  "multihost_overlap": ("multihost_overlap", ("overlap_on",)),
+                  "hlo_collectives": ("hlo_collectives", ("meshes", "2x4")),
+                  "scaling_model": ("scaling_model", ())}[name]
+    with open(os.path.join(root, "artifacts", "perf", f"{file}.json")) as f:
+        record = json.load(f)
+    for key in path:
+        record = record[key]
+    return tuple(k for k in record if k != "fullscale_963rel")
+
+
+def _k7_per_step(name, launches):
+    """Raise unless K7 launched once a step in every entry of ``launches``
+    (name -> launches a step)."""
+    bad = {k: v for k, v in launches.items() if v.get("adam") != 1.0}
+    if bad:
+        raise AssertionError(f"{name}: K7 not once a step: {bad}")
+
+
+def mesh_scripts_nccl(device):
+    """Phase 24 (a), in phase 20 (a)'s world of one NCCL rank: ``bench_sharded``
+    (the single ``Trainer`` and the (1, 1) mesh's, each pipelined, synced
+    and chunked, and their first step on the same injected draws, which
+    must agree to ``MESH_LOSS_TOL``) and ``diag_sharded`` (its ablations
+    and flop counts; no profile) at the CPU tests' size; each record holds
+    the JAX fields, its numbers are finite and K7 launches once a step of
+    every trainer.  Returns each script's seconds and K7's timed launches."""
+    from decagon_tpu_torch.scripts import bench_sharded, diag_sharded
+
+    graph = {k: v for k, v in MESH_SCRIPT_GRAPH.items() if k != "planted_rank"}
+    out = {}
+    t0 = time.perf_counter()
+    rec = bench_sharded.bench(device, graph_kw=graph, timing=MESH_SCRIPT_TIMING,
+                              shapes=[(1, 1)], log=lambda msg: None)
+    _k7_per_step("bench_sharded", rec["launches_per_step"])
+    _script_record("bench_sharded", rec, jax_mesh_fields("bench_sharded"), ("adam",),
+                   rec["launches_per_step"]["sharded_1x1_pipelined"])
+    loss = rec["first_step_loss"]
+    if not loss["max_abs_diff"] <= MESH_LOSS_TOL * abs(loss["single"]):
+        raise AssertionError(f"bench_sharded: the (1, 1) mesh's first step against the single "
+                             f"process's: {loss}")
+    timing = MESH_SCRIPT_TIMING
+    steps = {"pipelined": timing["pipelined"][0], "synced": timing["synced"][0],
+             "chunk16": timing["chunked"][0] * timing["chunked"][1]}
+    out["bench_sharded"] = dict(seconds=time.perf_counter() - t0, first_step_loss=loss,
+                                adam_launches=sum(v.get("adam", 0) * steps[k.rsplit("_", 1)[1]]
+                                                  for k, v in rec["launches_per_step"].items()))
+    t0 = time.perf_counter()
+    n = 1
+    rec = diag_sharded.diag(device, graph_kw=graph, n=n, warmup=1, profile=False)
+    steps = {k: v for k, v in rec["launches_per_call"].items() if k.endswith("_step")}
+    _k7_per_step("diag_sharded", steps)
+    _script_record("diag_sharded", rec, jax_mesh_fields("diag_sharded"), ("adam",),
+                   rec["launches_per_call"]["sharded_step"])
+    out["diag_sharded"] = dict(seconds=time.perf_counter() - t0,
+                               adam_launches=sum(v["adam"] * n for v in steps.values()),
+                               flops={k: rec[k]["flops"] for k in ("single_cost", "sharded_cost")})
+    return out
+
+
+def mesh_scripts_rank(rank, ports, device):
+    """Phase 24 (b) in rank ``rank`` of phase 20 (b)'s world: ``multihost_bench``'s
+    (2, 2) traces with f32 and bf16 row reductions and ``hlo_collectives``'
+    inventory of one step in that world; then two worlds of two ranks (ranks
+    0 and 1 on ``ports[0]``, 2 and 3 on ``ports[1]``): ``multihost_sim`` and
+    ``multihost_overlap`` with ``comm_overlap`` on in the first, off in the
+    second; the last rank then takes ``multihost_bench``'s single-process
+    trace.  Each through the script's own functions."""
+    import torch.distributed as dist
+
+    from decagon_tpu_torch.parallel.mesh import initialize_distributed
+    from decagon_tpu_torch.scripts import (
+        hlo_collectives, multihost_bench, multihost_overlap, multihost_sim,
+    )
+
+    kw = dict(device=str(device), graph_kw=MESH_SCRIPT_GRAPH, batch_size=MESH_SCRIPT_BATCH)
+    out = {dtype: multihost_bench.rank_main(rank, MESH_RANKS, 0, 2, 2, dtype,
+                                            steps=MESH_SCRIPT_STEPS, threads=1, **kw)
+           for dtype in ("float32", "bfloat16")}
+    out["inventory"] = hlo_collectives.rank_main(rank, MESH_RANKS, 0, 2, 2, **kw)
+    dist.destroy_process_group()
+    pair, r = divmod(rank, 2)
+    initialize_distributed(f"127.0.0.1:{ports[pair]}", 2, r, backend="gloo")
+    if pair == 0:
+        out["sim"] = multihost_sim.rank_main(r, 2, 0, device=str(device))
+    out["overlap"] = multihost_overlap.rank_main(r, 2, 0, overlap=pair == 0,
+                                                 steps=MESH_SCRIPT_STEPS, **kw)
+    dist.destroy_process_group()
+    if rank == MESH_RANKS - 1:
+        # The single process's trace, in a process that holds no group.
+        out["single"] = multihost_bench.single_trace(MESH_SCRIPT_STEPS, str(device),
+                                                     MESH_SCRIPT_GRAPH,
+                                                     batch_size=MESH_SCRIPT_BATCH)
+    return out
+
+
+def mesh_scripts(device, ranks):
+    """Phase 24 (b) and (c): the ranks' phase-24 results (the caller ends
+    the ranks): the (2, 2) f32 trace equal on every rank and to the single
+    process's on ``multihost_bench``'s small graph and draws within
+    ``multihost_bench.EXACT_TOL``, the bf16 drift finite, the
+    inventory's activation terms equal to the formulas on the tables the step
+    exchanges, both ``multihost_sim`` ranks ``MULTIHOST_OK`` with one loss,
+    ``comm_overlap`` on and off with equal loss heads; each record with its
+    JAX fields and finite numbers, K7 once a step in every rank; then the
+    scaling model from the checked-in records.  Returns a summary."""
+    from decagon_tpu_torch.scripts import (
+        hlo_collectives, multihost_bench, multihost_overlap, scaling_model,
+    )
+
+    t0 = time.perf_counter()
+    got = collect_ranks(ranks, 24)
+    out = {"wait_s": time.perf_counter() - t0}
+    single = got[MESH_RANKS - 1]["single"]
+    rec = {"configs": {"1proc_4dev_2x2": multihost_bench.summarize({0: single})}}
+    for tag, dtype in (("4proc_2x2", "float32"), ("4proc_2x2_bf16", "bfloat16")):
+        rec["configs"][tag] = multihost_bench.summarize({r: got[r][dtype] for r in got})
+    multihost_bench.derive(rec)
+    fields = jax_mesh_fields("multihost_bench")
+    for tag, entry in rec["configs"].items():
+        launches = entry["adam_launches_per_step"]
+        _script_record(f"multihost_bench {tag}", entry, fields, ("adam",), {"adam": min(launches)})
+        if launches != [1.0] * len(launches):
+            raise AssertionError(f"multihost_bench {tag}: K7 a step per rank {launches}")
+    if not rec["cross_process_equals_single_process"]:
+        raise AssertionError(f"multihost_bench: the (2, 2) trace against the single process's: "
+                             f"{rec['max_abs_vs_single_process']}")
+    out["multihost_bench"] = {k: rec[k] for k in ("max_abs_vs_single_process",
+                                                  "bf16_reduce_drift")}
+    rec_bench = rec["configs"]
+
+    entry = hlo_collectives.mesh_entry(2, 2, {r: got[r]["inventory"] for r in got})
+    _script_record("hlo_collectives 2x2", entry, jax_mesh_fields("hlo_collectives"), ("adam",),
+                   {"adam": min(entry["adam_launches_per_step"])})
+    want = entry["model_wire_prediction_per_edge_type"]
+    if any(entry["counted_wire_mib"][t] != want[t] for t in ("act_edge_mib", "act_row_mib")) or \
+            entry["adam_launches_per_step"] != [1] * MESH_RANKS:
+        raise AssertionError(f"hlo_collectives: counted {entry['counted_wire_mib']} against "
+                             f"{want}, K7 {entry['adam_launches_per_step']}")
+    out["hlo_collectives"] = {k: entry[k] for k in ("counted_wire_mib", "hlo_total_tensor_mib")}
+    entry_inv = entry
+
+    sim = [got[r]["sim"] for r in (0, 1)]
+    if not all(x["line"].startswith(f"MULTIHOST_OK pid={i}") for i, x in enumerate(sim)) or \
+            sim[0]["loss"] != sim[1]["loss"] or sim[0]["launches"].get("adam") != 1:
+        raise AssertionError(f"multihost_sim: {sim}")
+    out["multihost_sim"] = {"lines": [x["line"] for x in sim],
+                            "emb_max_abs_err": max(x["emb_max_abs_err"] for x in sim)}
+
+    runs = {key: multihost_overlap.entry({i: got[r]["overlap"] for i, r in enumerate(ranks_)})
+            for key, ranks_ in (("overlap_on", (0, 1)), ("overlap_off", (2, 3)))}
+    for key, entry in runs.items():
+        _script_record(f"multihost_overlap {key}", entry, jax_mesh_fields("multihost_overlap"),
+                       ("adam",), {"adam": min(entry["adam_launches_per_step"])})
+        if entry["adam_launches_per_step"] != [1.0, 1.0]:
+            raise AssertionError(f"multihost_overlap {key}: K7 {entry['adam_launches_per_step']}")
+    if runs["overlap_on"]["loss_head"] != runs["overlap_off"]["loss_head"]:
+        raise AssertionError(f"multihost_overlap: on and off differ: {runs}")
+    out["multihost_overlap"] = runs
+
+    rec = scaling_model.scaling_model()
+    _script_record("scaling_model", rec, jax_mesh_fields("scaling_model"), (), {})
+    out["scaling_model_2x4_weight_sharded"] = rec["meshes"]["2x4"]["weight_sharded"]
+    # K7's launches: the traces (the single process's too), the inventory's
+    # step, the simulation's step and the overlap runs, every rank.
+    out["adam_launches"] = (
+        sum(sum(e["adam_launches_per_step"]) * MESH_SCRIPT_STEPS for e in rec_bench.values())
+        + sum(entry_inv["adam_launches_per_step"]) + sum(x["launches"]["adam"] for x in sim)
+        + sum(sum(e["adam_launches_per_step"]) * MESH_SCRIPT_STEPS for e in runs.values()))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mesh scripts: {json.dumps(out)}")
+    return out
 
 
 def small_sparse(device):
@@ -2964,7 +3252,7 @@ def _ported_scripts(device):
         graph = quality_run.make_synthetic_graph(n_genes=60, n_drugs=40, n_drugdrug_types=2,
                                                  seed=0)
         path, (epoch, val, test) = quality_run.train_to_plateau(
-            "smoke", graph, max_epochs=2, eval_every=1, device=device, artifact_dir=tmp)
+            "smoke", graph, max_epochs=1, eval_every=1, device=device, artifact_dir=tmp)
         with open(path) as f:
             header = next(csv.reader(f))
         with open(path.replace(".csv", ".meta.json")) as f:
@@ -3082,7 +3370,7 @@ def _quality_and_probes(device):
 
     t0 = time.perf_counter()
     rec = quality_ablation.run_variant("lazy_adam", quality_ablation.VARIANTS["lazy_adam"],
-                                       max_epochs=2, eval_every=1, device=device,
+                                       max_epochs=1, eval_every=1, device=device,
                                        graph_kw=SCRIPT_DUMMY, log=quiet)
     launches = _trainer_rows("quality_ablation", rec["evaluations"])
     _script_record("quality_ablation", rec, jax_fields("quality_ablation"), ("adam", "sddmm"),
@@ -3090,7 +3378,7 @@ def _quality_and_probes(device):
     done("quality_ablation", t0, launches)
 
     t0 = time.perf_counter()
-    rec = quality_probe.run("refproto", epochs=2, val_frac=0.05, test_frac=0.0, device=device,
+    rec = quality_probe.run("refproto", epochs=1, val_frac=0.05, test_frac=0.0, device=device,
                             graph_kw=SCRIPT_DUMMY, log=quiet)
     launches = _trainer_rows("quality_probe", rec["evaluations"])
     _script_record("quality_probe", rec["evaluations"][-1],
@@ -3114,7 +3402,7 @@ def _quality_and_probes(device):
     done("schedule_ablation", t0, launches)
 
     t0 = time.perf_counter()
-    rec = perf_probe.perf_probe(["xla", "pallas"], chunk=2, device=device,
+    rec = perf_probe.perf_probe(["pallas"], chunk=2, device=device,
                                 graph_kw=SCRIPT_DUMMY, reps=1, log=quiet)
     for impl, entry in rec["impls"].items():
         for line in perf_probe.LINES:
@@ -3201,7 +3489,7 @@ def main(argv=None) -> int:
     if args.prepare_beyond:
         return prepare_beyond(args.prepare_beyond)
 
-    phase("device")
+    phase("device", "1")
     import torch
 
     if not torch.cuda.is_available():
@@ -3222,13 +3510,13 @@ def main(argv=None) -> int:
 
 
 def run_phases(args, device, kind, count, beyond) -> int:
-    """Phases 2-21 (``main`` has run phase 1 and started phase 21's host
+    """Phases 2-24 (``main`` has run phase 1 and started phase 21's host
     build)."""
     import torch
 
     from decagon_tpu_torch.ops import cuda_build
 
-    phase("build")
+    phase("build", "2")
     cuda_build.library()
     log(f"nvcc build {cuda_build.BUILD_INFO['seconds']:.1f}s")
     from decagon_tpu_torch import native
@@ -3240,112 +3528,122 @@ def run_phases(args, device, kind, count, beyond) -> int:
         if "Used" in line or "spill" in line:
             log("ptxas " + line.strip())
 
-    phase("serving state (paper scale)")
+    phase("serving state (paper scale)", "3")
     torch.cuda.reset_peak_memory_stats()
     graph, splits, dg, model, params, evaluator = build_state(PAPER, device, args.seed)
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    phase("kernels against plain versions")
+    phase("kernels against plain versions", "4")
     paired_rows = check_paired(dg, params, model)
     emb = evaluator.embeddings(params, dg)
     sddmm_rows, sddmm_bf16_rows = check_sddmm(dg, params, emb, splits, args.seed)
     del emb
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    phase("serve")
+    phase("serve", "5")
     counts, serve_split = serve(graph, splits, dg, model, params, evaluator)
 
-    phase("small-input reference")
+    phase("small-input reference", "6")
     small_reference(device)
 
-    phase("train (paper scale)")
+    phase("train (paper scale)", "7")
     train_counts, rec, train_summary, _ = train(dg, params, model, splits, args.seed)
     step_gradients(dg, params, model, splits, args.seed)
 
-    phase("kernels against plain versions, training")
+    phase("kernels against plain versions, training", "8")
     fwd_ds_rows, bwd_rows = check_training_kernels(dg, rec)
     del rec
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    phase("small-input training")
+    phase("small-input training", "9")
     small_training(device)
 
-    phase("trainer (paper scale)")
+    phase("trainer (paper scale)", "10")
     step_ms = train_summary[str((1, 1))]["step_ms_median_after_first"]
     trainer_counts, trainer_summary, state = trainer_phase(graph, splits, dg, model, args.seed,
                                                            step_ms)
 
-    phase("one-pass Adam against plain versions")
+    phase("one-pass Adam against plain versions", "11")
     adam_tree_row, adam_rows, p6_launches = check_adam(device, state, args.seed)
 
-    phase("trainer chunks through K7 and its plain version, and with pallas_adam (paper scale)")
+    phase("trainer chunks through K7 and its plain version, and with pallas_adam (paper scale)",
+          "12")
     chunk_counts, chunk_summary = optimizer_chunks(graph, splits, dg, model, args.seed, state)
 
-    phase("grouped trainer: the quality run's config (paper scale)")
+    phase("grouped trainer: the quality run's config (paper scale)", "12b")
     grouped_counts, grouped_summary = grouped_trainer(graph, splits, dg, model, evaluator,
                                                       args.seed, state)
     del state
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    phase("dummy config on the card")
+    phase("dummy config on the card", "13")
     gate = dummy_gate(device, args.seed)
 
-    phase("sparse state (paper scale)")
+    phase("sparse state (paper scale)", "14")
     del dg, evaluator, model, params
     torch.cuda.empty_cache()
     dg_sparse, sparse_summary = sparse_state(graph, splits, device)
 
-    phase("K6 against its plain version")
+    phase("K6 against its plain version", "15")
     params_sparse = sparse_model(dg_sparse, "default").init_params(
         torch.Generator().manual_seed(args.seed), dg_sparse)
     spmm_rows, spmm_bf16_rows = check_spmm(dg_sparse, params_sparse)
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    phase("sparse training (paper scale)")
+    phase("sparse training (paper scale)", "16")
     sparse_counts, sparse_train, params_sparse = sparse_training(graph, splits, dg_sparse,
                                                                  args.seed)
     sparse_train["gradients"] = sparse_gradients(dg_sparse, params_sparse, splits, args.seed)
     del params_sparse
 
-    phase("mesh (a): paper scale, a (1, 1) NCCL mesh")
+    phase("mesh (a): paper scale, a (1, 1) NCCL mesh", "20a")
     mesh_counts, mesh_paper_summary, mesh_k6_rows, mesh_k5_rows = mesh_paper(
         graph, splits, dg_sparse, args.seed,
         sparse_train["trainer"]["default"]["ms_per_step_median"])
     del dg_sparse
     torch.cuda.empty_cache()
 
-    phase("sparse regime beyond the paper's scale (1,600 drugs)")
+    phase("sparse regime beyond the paper's scale (1,600 drugs)", "21")
     beyond_counts, beyond_summary, beyond_k6_rows = beyond_paper(beyond, device, args.seed)
     torch.cuda.empty_cache()
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    phase("small-input sparse checks")
+    phase("small-input sparse checks", "17")
     small_sparse(device)
 
-    phase("probes")
+    phase("probes", "18")
     probe_counts, probe_rows, probe_heads = probes(device, args.seed, paired_rows)
 
-    phase("framework shell")
-    shell = framework_shell(device, args.seed)
-
-    phase(f"ported scripts at a small size, while phase 20 (b)'s {MESH_RANKS} ranks start")
-    ranks = spawn_mesh_ranks(device, args.seed)
+    # The ranks start after the last phase whose kernel times enter the
+    # report, so that no CUDA-event time is taken while they share the card.
+    phase(f"framework shell, while phase 20 (b)'s {MESH_RANKS} ranks start", "19")
+    ranks = spawn_mesh_ranks(device, args.seed, scripts=True)
     try:
+        shell = framework_shell(device, args.seed)
+        phase("ported scripts at a small size", "22")
         scripts = ported_scripts(device)
         phase("the dummy config's quality tools and the step and optimizer probes at a small "
-              "size")
+              "size", "23")
         quality_probes = quality_and_probes(device)
-    except BaseException:
+
+        phase(f"mesh (b): {MESH_RANKS} ranks over gloo on one card", "20b")
+        mesh_ranks_summary = mesh_ranks(device, args.seed, ranks)
+        phase("mesh scripts (b), (c): the ranks' worlds, then the scaling model", "24b")
+        mesh_script_summary = dict(mesh_scripts(device, ranks),
+                                   nccl=mesh_paper_summary.pop("scripts"))
+        phase(f"mesh (b): the {MESH_RANKS} ranks' exit", "20b")
+    finally:
         stop_mesh_ranks(ranks)
-        raise
 
-    phase(f"mesh (b): {MESH_RANKS} ranks over gloo on one card")
-    mesh_ranks_summary = mesh_ranks(device, args.seed, ranks)
-
-    phase("done")
+    phase("done", "done")
     launches = {name: counts[name] + train_counts[name] + trainer_counts[name]
                 + chunk_counts[name] + grouped_counts[name] + sparse_counts[name]
                 + mesh_counts[name] + beyond_counts[name] for name in train_counts}
+    # Phase 24's own path: its K7 launches in the timed steps of its scripts.
+    mesh_script_adam = int(round(
+        mesh_script_summary["adam_launches"]
+        + sum(v["adam_launches"] for v in mesh_script_summary["nccl"].values())))
+    launches["adam"] += mesh_script_adam
     log(f"launches on the main path: serve {counts}, train {train_counts}, trainer "
         f"{trainer_counts}, trainer chunks of phase 12 {chunk_counts}, grouped trainer "
         f"{grouped_counts}, sparse {sparse_counts}, mesh {mesh_counts}, beyond the paper's "
@@ -3360,7 +3658,8 @@ def run_phases(args, device, kind, count, beyond) -> int:
         "train_steps_phase7": train_counts["adam"], "trainer_phase10": trainer_counts["adam"],
         "trainer_chunks_phase12": chunk_counts["adam"],
         "grouped_trainer_phase12b": grouped_counts["adam"], "sparse_phase16": sparse_counts["adam"],
-        "mesh_phase20a": mesh_counts["adam"], "beyond_paper_phase21": beyond_counts["adam"]})
+        "mesh_phase20a": mesh_counts["adam"], "beyond_paper_phase21": beyond_counts["adam"],
+        "mesh_scripts_phase24": mesh_script_adam})
     report = {"kernels": [
         kernel_entry("paired_fwd", "decagon_tpu_torch/csrc/paired_fwd.cu",
                      "decagon_tpu/ops/spmm_paired.py:82", launches["paired_fwd"],
@@ -3399,7 +3698,9 @@ def run_phases(args, device, kind, count, beyond) -> int:
         "beyond_paper": beyond_summary, "serve_split": serve_split, "ported_scripts": scripts,
         "quality_and_probe_scripts": quality_probes,
         "framework_shell": shell,
-        "mesh": {"paper": mesh_paper_summary, "ranks": mesh_ranks_summary}}
+        "mesh": {"paper": mesh_paper_summary, "ranks": mesh_ranks_summary},
+        "mesh_scripts": mesh_script_summary}
+    print(json.dumps({"phase_seconds": phase_seconds()}))
     print(json.dumps(report))
     print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -27,14 +27,55 @@ Backends.  NCCL takes CUDA tensors, gloo CPU ones; gloo's CUDA support
 differs from op to op and version to version, so under gloo a CUDA tensor
 goes through the host (copied out, reduced, copied back), synchronously.
 The choice reads ``dist.get_backend(group)``.
+
+Inventory.  Inside ``with inventory() as calls``, every collective issued
+here appends ``{"kind", "group", "ranks", "bytes", "site"}`` to ``calls``:
+its kind under the XLA names ("all-reduce", "all-gather",
+"reduce-scatter"), its group (None: the default group) and that group's
+size, the bytes of its result tensor, and the ``site`` label in force
+(``site("gradients")`` around the gradient reduction; "activations"
+otherwise).  Outside it, a collective costs one ``is None`` check more.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+import contextlib
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+_INVENTORY: Optional[List[Dict]] = None
+_SITE = "activations"
+
+
+@contextlib.contextmanager
+def inventory():
+    """Record every collective issued inside the block (the module
+    docstring); yields the list."""
+    global _INVENTORY
+    outer, _INVENTORY = _INVENTORY, []
+    try:
+        yield _INVENTORY
+    finally:
+        _INVENTORY = outer
+
+
+@contextlib.contextmanager
+def site(name: str):
+    """Label the collectives issued inside the block in the inventory."""
+    global _SITE
+    outer, _SITE = _SITE, name
+    try:
+        yield
+    finally:
+        _SITE = outer
+
+
+def _note(kind: str, result_bytes: int, group) -> None:
+    if _INVENTORY is not None:
+        _INVENTORY.append({"kind": kind, "group": group, "ranks": _size(group),
+                           "bytes": result_bytes, "site": _SITE})
 
 
 class Pending:
@@ -64,6 +105,7 @@ def _size(group) -> int:
 
 def _all_reduce_(t: torch.Tensor, group, pending: Optional[Pending] = None) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place; returns ``t``."""
+    _note("all-reduce", t.numel() * t.element_size(), group)
     if _staged(t, group):
         host = t.cpu()
         dist.all_reduce(host, group=group)
@@ -79,6 +121,7 @@ def _all_gather(block: torch.Tensor, group, pending: Optional[Pending] = None) -
     """``[size * rows, ...]``: every rank's ``block`` stacked in rank order."""
     n = _size(group)
     src = block.contiguous()
+    _note("all-gather", n * src.numel() * src.element_size(), group)
     if _staged(src, group):
         host = src.cpu()
         full = torch.empty((n * host.shape[0],) + tuple(host.shape[1:]), dtype=host.dtype)
@@ -98,6 +141,7 @@ def _reduce_scatter(full: torch.Tensor, group) -> torch.Tensor:
     ``group``."""
     n = _size(group)
     src = full.contiguous()
+    _note("reduce-scatter", src.numel() // n * src.element_size(), group)
     if _staged(src, group):
         host = src.cpu()
         out = torch.empty((host.shape[0] // n,) + tuple(host.shape[1:]), dtype=host.dtype)

@@ -56,6 +56,7 @@ from decagon_tpu_torch.parallel.collectives import (
     all_reduce_sum,
     edge_accum,
     gather_rows,
+    site,
 )
 from decagon_tpu_torch.parallel.mesh import mesh_groups, mesh_shape, mesh_slot
 from decagon_tpu_torch.parallel.rowshard import ShardedGraph
@@ -206,6 +207,11 @@ def reduce_gradients(loss: torch.Tensor, grads, sharded_keys: frozenset, mesh: D
     block's rank backpropagates through its own block's edges only; with
     ``row_dtype`` (``TrainConfig.grad_reduce_dtype``) they travel in that
     type and are summed in it."""
+    with site("gradients"):
+        return _reduce_gradients(loss, grads, sharded_keys, mesh, row_dtype)
+
+
+def _reduce_gradients(loss, grads, sharded_keys, mesh, row_dtype):
     row_g, _ = mesh_groups(mesh)
     leaves = _leaves(grads)
     sharded = [i for i, (p, _) in enumerate(leaves) if _is_sharded_path(p, sharded_keys)]

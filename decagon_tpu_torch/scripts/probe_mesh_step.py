@@ -24,22 +24,16 @@ from __future__ import annotations
 
 import argparse
 import json
-import socket
 
 import torch
 
 from decagon_tpu_torch import resolve_device
 from decagon_tpu_torch.bench import PAPER, steady_state_ms
 from decagon_tpu_torch.scripts.probing import card
+from decagon_tpu_torch.scripts.worlds import free_port
 
 # Operation names of the collectives in a profile.
 _COLLECTIVES = ("c10d::", "nccl:", "record_param_comms")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _profile(trainer, chunk: int, top: int) -> dict:
@@ -96,7 +90,7 @@ def main(argv=None) -> dict:
     splits = split_graph(graph, val_frac=0.05, test_frac=0.05, seed=1)
     dg = build_device_graph(graph, splits, densify_max_cells=0, tile_for_pallas=True,
                             build_fused=False, device=device)
-    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
     try:
         mesh = make_mesh(shape=(1, 1), backend="nccl")
         sg = build_sharded_device_graph(graph, splits, (1, 1), 0, device, tile_for_pallas=True)

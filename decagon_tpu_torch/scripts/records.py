@@ -65,14 +65,20 @@ def write_json(path: str, record) -> None:
         json.dump(record, f, indent=1)
 
 
-def merge_entry(path: str, name: str, entry) -> Dict:
+def merge_entry(path: str, name: Optional[str], entry, update: bool = False) -> Dict:
     """The record of entries at ``path`` (empty if there is none) with
-    ``name``'s entry replaced, written back."""
+    ``name``'s entry replaced or, with ``update``, ``entry``'s keys merged
+    into it (``name`` None: into the record's top level), written back."""
     record = {}
     if os.path.exists(path):
         with open(path) as f:
             record = json.load(f)
-    record[name] = entry
+    if name is None:
+        record.update(entry)
+    elif update:
+        record.setdefault(name, {}).update(entry)
+    else:
+        record[name] = entry
     write_json(path, record)
     return record
 

@@ -56,7 +56,10 @@ def test_port_and_chip_smoke_import_no_jax():
                    "scripts.records", "scripts.quality_run", "scripts.profile_epoch",
                    "scripts.bench_scale", "scripts.probe_fullscale", "scripts.bench_paired",
                    "scripts.profile_fullscale_step", "scripts.profile_factored_ops",
-                   "scripts.profile_sddmm"):
+                   "scripts.profile_sddmm", "scripts.worlds", "scripts.scaling_model",
+                   "scripts.multihost_sim", "scripts.multihost_bench",
+                   "scripts.multihost_overlap", "scripts.bench_sharded",
+                   "scripts.diag_sharded", "scripts.hlo_collectives"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]

@@ -19,7 +19,6 @@ import dataclasses
 import datetime
 import os
 import queue as queue_mod
-import socket
 import time
 import traceback
 from typing import Any, Dict
@@ -29,13 +28,9 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from decagon_tpu_torch.scripts.worlds import free_port
+
 WORLD_TIMEOUT_S = 240
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _rank_main(target, rank, n_ranks, port, results, env, init, args):
@@ -442,41 +437,16 @@ def grouped_args(trainer, batches, chunk_size):
 
 
 def multihost_world(rank: int, n_ranks: int, port: int):
-    """The port's counterpart of ``scripts/multihost_sim.py``: each rank a
-    host (``LOCAL_WORLD_SIZE=1``), the ``row`` axis across them; one
-    sharded train step and the sharded embedding; then the meshes that
+    """The port's ``scripts/multihost_sim.py`` (``simulate``: each rank a
+    host, ``LOCAL_WORLD_SIZE=1``, the ``row`` axis across them; one
+    sharded train step and the sharded embedding); then the meshes that
     must be refused."""
-    from decagon_tpu_torch.graph.device import build_device_graph
-    from decagon_tpu_torch.graph.split import split_graph
-    from decagon_tpu_torch.graph.synthetic import make_synthetic_graph
-    from decagon_tpu_torch.models.model import DecagonModel, ModelConfig
-    from decagon_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, mesh_slot
-    from decagon_tpu_torch.parallel.rowshard import build_sharded_device_graph
-    from decagon_tpu_torch.parallel.sharded import (
-        make_sharded_embed_fn,
-        make_sharded_train_step,
-    )
-    from decagon_tpu_torch.train.step import TrainConfig, make_optimizer, step_generator
+    from decagon_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from decagon_tpu_torch.scripts.multihost_sim import simulate
 
     initialize_distributed(f"127.0.0.1:{port}", n_ranks, rank, backend="gloo")
     initialize_distributed(f"127.0.0.1:{port}", n_ranks, rank, backend="gloo")  # idempotent
-    graph = make_synthetic_graph(n_genes=64, n_drugs=32, n_drugdrug_types=1, seed=1)
-    splits = split_graph(graph, val_frac=0.1, test_frac=0.05, seed=2)
-    dg = build_device_graph(graph, splits, edge_pad_multiple=256, device="cpu")
-    model = DecagonModel(ModelConfig(hidden1=16, hidden2=8), dg)
-    params = model.init_params(torch.Generator().manual_seed(0), dg)
-
-    mesh = make_mesh(shape=(n_ranks, 1), multihost=True, backend="gloo")
-    sg = build_sharded_device_graph(graph, splits, (n_ranks, 1), mesh_slot(mesh), device="cpu")
-    cfg = TrainConfig(batch_size=16, learning_rate=1e-3)
-    opt = make_optimizer(cfg)
-    step = make_sharded_train_step(model, (1, 1), cfg, opt, mesh, sg)
-    train = splits[(1, 1, 0)].train
-    idx = np.random.default_rng(0).integers(0, len(train), size=16)
-    _, _, loss = step(params, opt.init(params), sg, 0, torch.from_numpy(train[idx, 0]),
-                      torch.from_numpy(train[idx, 1]), step_generator(0, 0, "cpu"))
-    emb = make_sharded_embed_fn(model, mesh, sg)(params, sg)
-    want = model.embeddings(params, dg)
+    res = simulate(rank, n_ranks, torch.device("cpu"))
     refused = {}
     for name, kw in (("size", dict(shape=(2, 2))), ("edge_across_hosts",
                                                      dict(shape=(1, n_ranks), multihost=True)),
@@ -486,5 +456,42 @@ def multihost_world(rank: int, n_ranks: int, port: int):
             refused[name] = None
         except ValueError as exc:
             refused[name] = str(exc)
-    return {"loss": float(loss), "emb": to_numpy(emb), "single_emb": to_numpy(want),
+    return {"loss": res["loss"], "emb": res["emb"], "single_emb": res["single_emb"],
             "refused": refused}
+
+
+# ---- the mesh scripts' worlds (tests/test_torch_scripts_mesh.py) ----------
+
+
+def mesh_scripts_world2(rank: int, params_np, graph_kw, steps: int, batch: int):
+    """Two ranks: ``multihost_sim``'s rank (its line and loss) and its
+    sharded embedding from ``params_np``, then ``multihost_overlap``'s
+    weight-sharded steps with ``comm_overlap`` on and off."""
+    from decagon_tpu_torch.scripts import multihost_overlap, multihost_sim
+
+    res = {"sim": multihost_sim.rank_main(rank, 2, 0, device="cpu")}
+    res["sim_carried"] = multihost_sim.simulate(rank, 2, torch.device("cpu"),
+                                                params=from_numpy(params_np))["emb"]
+    for overlap in (True, False):
+        res[f"overlap_{overlap}"] = multihost_overlap.rank_main(
+            rank, 2, 0, overlap=overlap, steps=steps, device="cpu", graph_kw=graph_kw,
+            batch_size=batch)
+    return res
+
+
+def mesh_scripts_world4(rank: int, graph_kw, steps: int, batch: int, teacher_dir: str):
+    """Four ranks: ``multihost_bench``'s (2, 2) traces with f32 and bf16
+    row reductions and its losses at the single process's saved points
+    (``teacher_dir``), then ``hlo_collectives``' inventory of one step on
+    the (2, 2) mesh."""
+    from decagon_tpu_torch.scripts import hlo_collectives, multihost_bench
+
+    res = {dtype: multihost_bench.rank_main(rank, 4, 0, 2, 2, dtype, steps=steps, device="cpu",
+                                            graph_kw=graph_kw, batch_size=batch)
+           for dtype in ("float32", "bfloat16")}
+    res["teacher"] = multihost_bench.rank_main(rank, 4, 0, 2, 2, "float32", steps=steps,
+                                               device="cpu", graph_kw=graph_kw,
+                                               batch_size=batch, teacher_dir=teacher_dir)
+    res["inventory"] = hlo_collectives.rank_main(rank, 4, 0, 2, 2, device="cpu",
+                                                 graph_kw=graph_kw, batch_size=batch)
+    return res
