@@ -214,10 +214,12 @@ Phases, each announced with the seconds elapsed since start:
    version at "default", and with ``remat`` against without.
 22. ported scripts at a small size, run before phase 20 (b) on one host
    thread while that phase's ranks work (they start with phase 19; each
-   phase reports its own failure): each of the eight ports of the JAX package's profilers and quality runs (``decagon_tpu_torch/scripts/``
-   ``quality_run``, ``profile_epoch``, ``bench_scale``,
-   ``probe_fullscale``, ``bench_paired``, ``profile_fullscale_step``,
-   ``profile_factored_ops``, ``profile_sddmm``) through its own functions,
+   phase reports its own failure): seven of the eight ports of the JAX
+   package's profilers and quality runs (``decagon_tpu_torch/scripts/``
+   ``quality_run``, ``bench_scale`` at "pallas", ``probe_fullscale``,
+   ``bench_paired``, ``profile_fullscale_step``, ``profile_factored_ops``,
+   ``profile_sddmm``; ``profile_epoch`` and ``bench_scale``'s "xla" line
+   were cut to pay for phase 25 and phase 24's additions) through its own functions,
    on the card, at the sizes of its CPU tests (200 proteins, 40 drugs, 4
    side effects): its record must hold the JAX artifact's fields (the
    top-level keys of ``artifacts/perf/<name>.json``, the keys of the line
@@ -255,19 +257,32 @@ Phases, each announced with the seconds elapsed since start:
    20 (a)'s world of one NCCL rank before it is destroyed:
    ``bench_sharded`` (the single ``Trainer`` and the (1, 1) mesh's, each
    pipelined, synced and chunked, their first steps on the same injected
-   draws within ``MESH_LOSS_TOL``) and ``diag_sharded`` (no profile).  (b),
-   in phase 20 (b)'s ranks right after their phase 20 work (so it runs
-   while this process runs phases 19, 22 and 23): ``multihost_bench``'s (2, 2)
-   traces with f32 and bf16 row reductions and ``hlo_collectives``'
-   inventory of one step in that world, then two worlds of two ranks:
-   ``multihost_sim`` and ``multihost_overlap`` with ``comm_overlap`` on in
-   one, off in the other, and the last rank then takes the single
-   process's trace; this process holds the (2, 2) trace to it
-   (``multihost_bench.EXACT_TOL``), the inventory's activation terms to the
-   formulas, on and off to one loss head.  (c) ``scaling_model`` from the
+   draws within ``MESH_LOSS_TOL``), ``diag_sharded`` (no profile) and
+   ``hlo_overlap_schedule``'s step with overlap on and off, whose
+   collectives NCCL starts asynchronously: the predicted pairs with overlap
+   on, none off.  (b), in phase 20 (b)'s ranks right after their phase 20
+   work (so it runs while this process runs phases 19, 22, 23 and 25): the
+   last rank takes the single process's trace with its points saved, then
+   ``multihost_bench``'s (2, 2) traces with f32 and bf16 row reductions and
+   the mesh at the saved points with each, ``hlo_collectives``' inventory
+   and ``hlo_overlap_schedule``'s step on and off in that world, then two
+   worlds of two ranks: ``multihost_sim`` and ``multihost_overlap`` with
+   ``comm_overlap`` on in one, off in the other; this process holds the
+   (2, 2) trace to the single process's (``multihost_bench.EXACT_TOL``),
+   the teacher-forced rule (``multihost_bench.judge``: it must hold on the
+   f32 mesh and reject the bf16 one), the inventory's activation terms to
+   the formulas, the schedule to no pair (gloo stages every collective of
+   a CUDA tensor), on and off to one loss head.  (c) ``scaling_model`` from the
    checked-in records.  Every record holds its JAX fields, every number is
    finite, and K7 launches once a step in every rank and every trainer
    (these launches join K7's line).
+25. the public-data ingest at a small scale (``ingest_fullsize.ingest`` at
+   ``INGEST_SCALE``: ~10,500 combo rows in the JAX fixture's formats),
+   while phase 20 (b)'s ranks run: the native parse equal to the Python
+   parse, ``load_public_dataset``, the split, two "xla" steps (K7 once a
+   step), then on ``bench.py``'s headline device graph two paired steps
+   (K1-K4, K7) and the pooled evaluation with f32 and bf16 tables (K5,
+   K5-bf16); every launch counted joins the kernel report.
 
 The line before the kernel report is ``{"phase_seconds": {...}}``: each
 phase's seconds by its number (a phase run in parts, "24a" and "24b", also
@@ -2629,8 +2644,13 @@ def mesh_scripts_nccl(device):
     must agree to ``MESH_LOSS_TOL``) and ``diag_sharded`` (its ablations
     and flop counts; no profile) at the CPU tests' size; each record holds
     the JAX fields, its numbers are finite and K7 launches once a step of
-    every trainer.  Returns each script's seconds and K7's timed launches."""
-    from decagon_tpu_torch.scripts import bench_sharded, diag_sharded
+    every trainer; then ``hlo_overlap_schedule``'s step with overlap on and
+    off in this world, where the starts are asynchronous
+    (``check_schedule``).  Returns each script's seconds and K7's timed
+    launches."""
+    import torch
+
+    from decagon_tpu_torch.scripts import bench_sharded, diag_sharded, hlo_overlap_schedule
 
     graph = {k: v for k, v in MESH_SCRIPT_GRAPH.items() if k != "planted_rank"}
     out = {}
@@ -2660,29 +2680,107 @@ def mesh_scripts_nccl(device):
     out["diag_sharded"] = dict(seconds=time.perf_counter() - t0,
                                adam_launches=sum(v["adam"] * n for v in steps.values()),
                                flops={k: rec[k]["flops"] for k in ("single_cost", "sharded_cost")})
+    t0 = time.perf_counter()
+    runs = {overlap: {0: hlo_overlap_schedule.rank_main(
+        0, 1, 0, 1, 1, overlap, device=str(device), backend="nccl", graph_kw=MESH_SCRIPT_GRAPH,
+        batch_size=MESH_SCRIPT_BATCH, threads=torch.get_num_threads())}
+        for overlap in (True, False)}
+    runs, adam = check_schedule("hlo_overlap_schedule (1, 1) NCCL", runs, asynchronous=True)
+    out["hlo_overlap_schedule"] = dict(seconds=time.perf_counter() - t0, adam_launches=adam,
+                                       **schedule_summary(runs))
     return out
 
 
+def schedule_summary(runs):
+    """``hlo_overlap_schedule``'s JAX fields of overlap on and off."""
+    return {f"overlap_{'on' if overlap else 'off'}": {k: r[k] for k in (
+        "async_collective_pairs", "pairs_with_compute_between", "total_compute_ops_inside_spans",
+        "by_kind", "ops_issued_in_step")} for overlap, r in runs.items()}
+
+
+def check_schedule(name, ranks_runs, asynchronous):
+    """Raise unless ``hlo_overlap_schedule``'s runs (overlap -> rank ->
+    result) give one loss on and off, no asynchronous start left unwaited
+    (``hlo_overlap_schedule.variant``), K7 once in every rank's step, no
+    pair with overlap off and, with overlap on, the script's predicted
+    pairs in rank 0's schedule where the backend starts its collectives
+    asynchronously (per layer one edge sum an edge type, all but the last
+    with compute between, and as many row gathers) and none where it stages
+    them.  Returns each setting's entry and K7's launches summed over every
+    rank and both settings."""
+    from decagon_tpu_torch.scripts import hlo_overlap_schedule
+
+    runs = {o: hlo_overlap_schedule.variant(r) for o, r in ranks_runs.items()}
+    on, off = runs[True], runs[False]
+    n = len(on["edge_types"])
+    want = (2 * 2 * n, 2 * (n - 1)) if asynchronous else (0, 0)
+    got = (on["async_collective_pairs"], on["pairs_with_compute_between"])
+    adam = [k for r in runs.values() for k in r["adam_launches_per_rank"]]
+    if got != want or off["async_collective_pairs"] or on["loss"] != off["loss"] or \
+            adam != [1] * len(adam):
+        raise AssertionError(f"{name}: pairs {got} against {want}, overlap off "
+                             f"{off['async_collective_pairs']}, losses {on['loss']} / "
+                             f"{off['loss']}, K7 a rank (on, off) "
+                             f"{on['adam_launches_per_rank']} / {off['adam_launches_per_rank']}")
+    return runs, sum(adam)
+
+
 def mesh_scripts_rank(rank, ports, device):
-    """Phase 24 (b) in rank ``rank`` of phase 20 (b)'s world: ``multihost_bench``'s
-    (2, 2) traces with f32 and bf16 row reductions and ``hlo_collectives``'
-    inventory of one step in that world; then two worlds of two ranks (ranks
-    0 and 1 on ``ports[0]``, 2 and 3 on ``ports[1]``): ``multihost_sim`` and
-    ``multihost_overlap`` with ``comm_overlap`` on in the first, off in the
-    second; the last rank then takes ``multihost_bench``'s single-process
-    trace.  Each through the script's own functions."""
+    """Phase 24 (b) in rank ``rank`` of phase 20 (b)'s world: the last rank
+    takes ``multihost_bench``'s single-process trace, its points saved to a
+    directory it shares with the others (and deletes); then
+    ``multihost_bench``'s (2, 2) traces with f32 and bf16 row reductions,
+    the (2, 2) mesh at the saved points with each reduction (its
+    ``teacher_forced_rule``), ``hlo_collectives``' inventory of one step and
+    ``hlo_overlap_schedule``'s step with overlap on and off in that world;
+    then two worlds of two ranks (ranks 0 and 1 on ``ports[0]``, 2 and 3 on
+    ``ports[1]``): ``multihost_sim`` and ``multihost_overlap`` with
+    ``comm_overlap`` on in the first, off in the second.  Each through the
+    script's own functions."""
     import torch.distributed as dist
 
     from decagon_tpu_torch.parallel.mesh import initialize_distributed
     from decagon_tpu_torch.scripts import (
-        hlo_collectives, multihost_bench, multihost_overlap, multihost_sim,
+        hlo_collectives, hlo_overlap_schedule, multihost_bench, multihost_overlap, multihost_sim,
     )
 
     kw = dict(device=str(device), graph_kw=MESH_SCRIPT_GRAPH, batch_size=MESH_SCRIPT_BATCH)
-    out = {dtype: multihost_bench.rank_main(rank, MESH_RANKS, 0, 2, 2, dtype,
-                                            steps=MESH_SCRIPT_STEPS, threads=1, **kw)
-           for dtype in ("float32", "bfloat16")}
+    last = MESH_RANKS - 1
+    out, shared, seconds = {}, [None], {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    if rank == last:
+        shared[0] = tempfile.mkdtemp(prefix="decagon_teacher_")
+        out["single"] = multihost_bench.single_trace(MESH_SCRIPT_STEPS, str(device),
+                                                     MESH_SCRIPT_GRAPH,
+                                                     batch_size=MESH_SCRIPT_BATCH,
+                                                     save_dir=shared[0])
+    dist.broadcast_object_list(shared, src=last)
+    lap("single")
+    try:
+        for dtype in ("float32", "bfloat16"):
+            out[dtype] = multihost_bench.rank_main(rank, MESH_RANKS, 0, 2, 2, dtype,
+                                                   steps=MESH_SCRIPT_STEPS, threads=1, **kw)
+            lap(f"trace_{dtype}")
+            out[f"teacher_{dtype}"] = multihost_bench.rank_main(
+                rank, MESH_RANKS, 0, 2, 2, dtype, steps=MESH_SCRIPT_STEPS, threads=1,
+                teacher_dir=shared[0], **kw)
+            lap(f"teacher_{dtype}")
+        dist.barrier()
+    finally:
+        if rank == last:
+            shutil.rmtree(shared[0], ignore_errors=True)
     out["inventory"] = hlo_collectives.rank_main(rank, MESH_RANKS, 0, 2, 2, **kw)
+    lap("inventory")
+    out["schedule"] = {overlap: hlo_overlap_schedule.rank_main(rank, MESH_RANKS, 0, 2, 2,
+                                                               overlap, **kw)
+                       for overlap in (True, False)}
+    lap("schedule")
     dist.destroy_process_group()
     pair, r = divmod(rank, 2)
     initialize_distributed(f"127.0.0.1:{ports[pair]}", 2, r, backend="gloo")
@@ -2691,11 +2789,8 @@ def mesh_scripts_rank(rank, ports, device):
     out["overlap"] = multihost_overlap.rank_main(r, 2, 0, overlap=pair == 0,
                                                  steps=MESH_SCRIPT_STEPS, **kw)
     dist.destroy_process_group()
-    if rank == MESH_RANKS - 1:
-        # The single process's trace, in a process that holds no group.
-        out["single"] = multihost_bench.single_trace(MESH_SCRIPT_STEPS, str(device),
-                                                     MESH_SCRIPT_GRAPH,
-                                                     batch_size=MESH_SCRIPT_BATCH)
+    lap("pairs")
+    out["seconds"] = seconds
     return out
 
 
@@ -2703,19 +2798,26 @@ def mesh_scripts(device, ranks):
     """Phase 24 (b) and (c): the ranks' phase-24 results (the caller ends
     the ranks): the (2, 2) f32 trace equal on every rank and to the single
     process's on ``multihost_bench``'s small graph and draws within
-    ``multihost_bench.EXACT_TOL``, the bf16 drift finite, the
-    inventory's activation terms equal to the formulas on the tables the step
-    exchanges, both ``multihost_sim`` ranks ``MULTIHOST_OK`` with one loss,
-    ``comm_overlap`` on and off with equal loss heads; each record with its
-    JAX fields and finite numbers, K7 once a step in every rank; then the
-    scaling model from the checked-in records.  Returns a summary."""
+    ``multihost_bench.EXACT_TOL``, the bf16 drift finite, the teacher-forced
+    rule (``multihost_bench.rule_record``) holding on the f32 mesh and
+    rejecting the bf16 one, the inventory's activation terms equal to the
+    formulas on the tables the step exchanges, ``hlo_overlap_schedule``'s
+    step with no pair (gloo stages a CUDA tensor's collectives), both
+    ``multihost_sim`` ranks ``MULTIHOST_OK`` with one loss, ``comm_overlap``
+    on and off with equal loss heads; each record with its JAX fields and
+    finite numbers, K7 once a step in every rank; then the scaling model from
+    the checked-in records.  Returns a summary."""
+    import torch
+
     from decagon_tpu_torch.scripts import (
         hlo_collectives, multihost_bench, multihost_overlap, scaling_model,
     )
 
     t0 = time.perf_counter()
     got = collect_ranks(ranks, 24)
-    out = {"wait_s": time.perf_counter() - t0}
+    out = {"wait_s": time.perf_counter() - t0,
+           "rank_seconds": {part: max(got[r]["seconds"][part] for r in got)
+                            for part in got[0]["seconds"]}}
     single = got[MESH_RANKS - 1]["single"]
     rec = {"configs": {"1proc_4dev_2x2": multihost_bench.summarize({0: single})}}
     for tag, dtype in (("4proc_2x2", "float32"), ("4proc_2x2_bf16", "bfloat16")):
@@ -2730,8 +2832,15 @@ def mesh_scripts(device, ranks):
     if not rec["cross_process_equals_single_process"]:
         raise AssertionError(f"multihost_bench: the (2, 2) trace against the single process's: "
                              f"{rec['max_abs_vs_single_process']}")
+    rule = multihost_bench.rule_record({
+        multihost_bench.teacher_tag(2, 2, dtype): multihost_bench.teacher_entry(
+            single["losses"], {r: got[r][f"teacher_{dtype}"] for r in got})
+        for dtype in ("float32", "bfloat16")})
+    if not (rule["holds_on_every_f32_mesh"] and rule["control_rejected"]):
+        raise AssertionError(f"multihost_bench: the teacher-forced rule {json.dumps(rule)}")
     out["multihost_bench"] = {k: rec[k] for k in ("max_abs_vs_single_process",
                                                   "bf16_reduce_drift")}
+    out["multihost_bench"]["teacher_forced_rule"] = rule
     rec_bench = rec["configs"]
 
     entry = hlo_collectives.mesh_entry(2, 2, {r: got[r]["inventory"] for r in got})
@@ -2744,6 +2853,14 @@ def mesh_scripts(device, ranks):
                              f"{want}, K7 {entry['adam_launches_per_step']}")
     out["hlo_collectives"] = {k: entry[k] for k in ("counted_wire_mib", "hlo_total_tensor_mib")}
     entry_inv = entry
+
+    # Gloo stages a CUDA tensor's collectives through the host: no pairs on
+    # the card (CPU tensors are reduced asynchronously).
+    schedules, adam_schedule = check_schedule(
+        "hlo_overlap_schedule (2, 2) gloo",
+        {overlap: {r: got[r]["schedule"][overlap] for r in got} for overlap in (True, False)},
+        asynchronous=torch.device(device).type != "cuda")
+    out["hlo_overlap_schedule"] = schedule_summary(schedules)
 
     sim = [got[r]["sim"] for r in (0, 1)]
     if not all(x["line"].startswith(f"MULTIHOST_OK pid={i}") for i, x in enumerate(sim)) or \
@@ -2767,10 +2884,12 @@ def mesh_scripts(device, ranks):
     _script_record("scaling_model", rec, jax_mesh_fields("scaling_model"), (), {})
     out["scaling_model_2x4_weight_sharded"] = rec["meshes"]["2x4"]["weight_sharded"]
     # K7's launches: the traces (the single process's too), the inventory's
-    # step, the simulation's step and the overlap runs, every rank.
+    # step, the schedule's two steps, the simulation's step and the overlap
+    # runs, every rank.
     out["adam_launches"] = (
         sum(sum(e["adam_launches_per_step"]) * MESH_SCRIPT_STEPS for e in rec_bench.values())
-        + sum(entry_inv["adam_launches_per_step"]) + sum(x["launches"]["adam"] for x in sim)
+        + sum(entry_inv["adam_launches_per_step"]) + adam_schedule
+        + sum(x["launches"]["adam"] for x in sim)
         + sum(sum(e["adam_launches_per_step"]) * MESH_SCRIPT_STEPS for e in runs.values()))
     out["seconds"] = time.perf_counter() - t0
     log(f"mesh scripts: {json.dumps(out)}")
@@ -3226,9 +3345,9 @@ def on_one_thread(fn, device):
 
 
 def ported_scripts(device):
-    """Phase 22: the eight ported scripts' functions on the card at the
-    sizes of their CPU tests, on one host thread; returns each one's
-    seconds and launches."""
+    """Phase 22: seven ported scripts' functions on the card at the sizes
+    of their CPU tests, on one host thread; returns each one's seconds and
+    launches."""
     return on_one_thread(_ported_scripts, device)
 
 
@@ -3237,8 +3356,8 @@ def _ported_scripts(device):
     import tempfile
 
     from decagon_tpu_torch.scripts import (
-        bench_paired, bench_scale, probe_fullscale, profile_epoch, profile_factored_ops,
-        profile_fullscale_step, profile_sddmm, quality_run,
+        bench_paired, bench_scale, probe_fullscale, profile_factored_ops, profile_fullscale_step,
+        profile_sddmm, quality_run,
     )
 
     quiet = lambda msg: None  # noqa: E731
@@ -3267,22 +3386,12 @@ def _ported_scripts(device):
     done("quality_run", t0, launches)
 
     t0 = time.perf_counter()
-    rec = profile_epoch.profile_epoch(device, graph_kw=dict(SCRIPT_GRAPH, planted_rank=4),
-                                      chunk=2, n_sync=2, n_pipe=2, log=quiet)
-    launches = dict(rec["timed_launches_per_step"], **rec["eval_warm_launches"])
-    _script_record("profile_epoch", rec, jax_fields("profile_epoch"), ("adam", "sddmm"),
+    (line,) = bench_scale.bench_scale(4, ["pallas"], device,
+                                      graph_kw=dict(n_proteins=200, n_drugs=40, seed=7),
+                                      chunk=2, densify_max_cells=0)
+    launches = line["launches_per_step"]
+    _script_record("bench_scale", line, jax_fields("bench_scale"), ("adam", "spmm_tiled"),
                    launches)
-    done("profile_epoch", t0, launches)
-
-    t0 = time.perf_counter()
-    lines = bench_scale.bench_scale(4, ["xla", "pallas"], device,
-                                    graph_kw=dict(n_proteins=200, n_drugs=40, seed=7), chunk=2,
-                                    densify_max_cells=0)
-    launches = lines[1]["launches_per_step"]
-    for line in lines:
-        _script_record("bench_scale", line, jax_fields("bench_scale"),
-                       ("adam", "spmm_tiled") if line["impl"] == "pallas" else ("adam",),
-                       line["launches_per_step"])
     done("bench_scale", t0, launches)
 
     t0 = time.perf_counter()
@@ -3330,6 +3439,65 @@ def _ported_scripts(device):
                    ("sddmm", "sddmm_bf16"), launches)
     done("profile_sddmm", t0, launches)
     return out
+
+
+# ---- phase 25: the public-data ingest at a small scale -----------------------
+
+# ``ingest_fullsize.draws``' scale: ~10,500 combo rows over 150 drugs and 5
+# side effects, 3 of them past the 500-row filter.
+INGEST_SCALE = 0.002
+
+
+def ingest_small(device):
+    """Phase 25: ``decagon_tpu_torch/scripts/ingest_fullsize.py``'s whole
+    path at ``INGEST_SCALE`` through its own ``ingest``: the fixture's CSVs,
+    the native parse equal to the Python parse, ``load_public_dataset``,
+    the split, then both legs: two "xla" steps (K7 once a step) and, on the
+    bench headline's device graph, two paired steps (K1-K4 and K7 once a
+    step) and the pooled evaluation with f32 and bf16 tables (K5, K5-bf16).
+    Losses finite, the evaluations' metrics in [0, 1].  Returns (launches,
+    summary)."""
+    from decagon_tpu_torch.scripts import ingest_fullsize
+
+    rec = ingest_fullsize.ingest(str(device), INGEST_SCALE, log=lambda msg: None)
+    xla, paired = rec["xla_steps"], rec["paired"]
+    steps = ingest_fullsize.STEPS
+    ev, ev_bf16 = paired["eval"], paired["eval_bf16_tables"]
+    bad = []
+    if not rec["native_vs_python_equal"]:
+        bad.append("the native and Python parses differ")
+    # Every large relation has 500 rows or more, every small one fewer.
+    if rec["relations_after_filter"] != ingest_fullsize.counts(INGEST_SCALE)["n_big"]:
+        bad.append(f"relations {rec['relations_after_filter']}")
+    if not (rec["losses_finite"] and paired["losses_finite"]):
+        bad.append(f"losses {xla['losses']} / {paired['losses']}")
+    if xla["launches"] != {"adam": steps}:
+        bad.append(f"xla launches {xla['launches']}")
+    if paired["launches"].get("adam") != steps or not (
+            paired["launches"].get("paired_fwd", 0) > 0
+            and paired["launches"].get("paired_bwd", 0) > 0):
+        bad.append(f"paired launches {paired['launches']}")
+    if ev["launches"].get("sddmm", 0) <= 0 or ev_bf16["launches"].get("sddmm_bf16", 0) <= 0 \
+            or not all(0.0 <= e[k] <= 1.0 for e in (ev, ev_bf16)
+                       for k in ("auroc", "auprc", "apk")):
+        bad.append(f"evaluations {ev}, {ev_bf16}")
+    if paired["forms"].get("1,1") != "paired":
+        bad.append(f"forms {paired['forms']}")
+    if bad:
+        raise AssertionError(f"ingest_fullsize at scale {INGEST_SCALE}: {bad}")
+    launches = {}
+    for counts in (xla["launches"], paired["launches"], ev["launches"], ev_bf16["launches"]):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    summary = {k: rec[k] for k in ("fixture", "native_parse", "python_parse",
+                                   "relations_after_filter", "n_drugs", "n_proteins",
+                                   "load_public_dataset_s", "split_and_device_graph_s",
+                                   "two_cpu_train_steps_s", "stage_s", "wall_s")}
+    summary.update(xla_launches=xla["launches"], paired_forms=paired["forms"],
+                   paired_launches=paired["launches"], paired_ms_per_step=paired["ms_per_step"],
+                   eval=ev, eval_bf16_tables=ev_bf16, launches=launches)
+    log(f"ingest: {json.dumps(summary)}")
+    return launches, summary
 
 
 # ---- phase 23: the quality tools and the step and optimizer probes ----------
@@ -3625,6 +3793,8 @@ def run_phases(args, device, kind, count, beyond) -> int:
         phase("the dummy config's quality tools and the step and optimizer probes at a small "
               "size", "23")
         quality_probes = quality_and_probes(device)
+        phase("the public-data ingest at a small scale", "25")
+        ingest_counts, ingest = ingest_small(device)
 
         phase(f"mesh (b): {MESH_RANKS} ranks over gloo on one card", "20b")
         mesh_ranks_summary = mesh_ranks(device, args.seed, ranks)
@@ -3644,6 +3814,9 @@ def run_phases(args, device, kind, count, beyond) -> int:
         mesh_script_summary["adam_launches"]
         + sum(v["adam_launches"] for v in mesh_script_summary["nccl"].values())))
     launches["adam"] += mesh_script_adam
+    # Phase 25's path: the ingested graph's steps and evaluation.
+    for name, n in ingest_counts.items():
+        launches[name] += n
     log(f"launches on the main path: serve {counts}, train {train_counts}, trainer "
         f"{trainer_counts}, trainer chunks of phase 12 {chunk_counts}, grouped trainer "
         f"{grouped_counts}, sparse {sparse_counts}, mesh {mesh_counts}, beyond the paper's "
@@ -3659,7 +3832,7 @@ def run_phases(args, device, kind, count, beyond) -> int:
         "trainer_chunks_phase12": chunk_counts["adam"],
         "grouped_trainer_phase12b": grouped_counts["adam"], "sparse_phase16": sparse_counts["adam"],
         "mesh_phase20a": mesh_counts["adam"], "beyond_paper_phase21": beyond_counts["adam"],
-        "mesh_scripts_phase24": mesh_script_adam})
+        "mesh_scripts_phase24": mesh_script_adam, "ingest_phase25": ingest_counts["adam"]})
     report = {"kernels": [
         kernel_entry("paired_fwd", "decagon_tpu_torch/csrc/paired_fwd.cu",
                      "decagon_tpu/ops/spmm_paired.py:82", launches["paired_fwd"],
@@ -3697,7 +3870,7 @@ def run_phases(args, device, kind, count, beyond) -> int:
         "dummy_gate": gate, "sparse_state": sparse_summary, "sparse_training": sparse_train,
         "beyond_paper": beyond_summary, "serve_split": serve_split, "ported_scripts": scripts,
         "quality_and_probe_scripts": quality_probes,
-        "framework_shell": shell,
+        "framework_shell": shell, "ingest": ingest,
         "mesh": {"paper": mesh_paper_summary, "ranks": mesh_ranks_summary},
         "mesh_scripts": mesh_script_summary}
     print(json.dumps({"phase_seconds": phase_seconds()}))

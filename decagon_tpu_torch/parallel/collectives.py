@@ -29,12 +29,19 @@ goes through the host (copied out, reduced, copied back), synchronously.
 The choice reads ``dist.get_backend(group)``.
 
 Inventory.  Inside ``with inventory() as calls``, every collective issued
-here appends ``{"kind", "group", "ranks", "bytes", "site"}`` to ``calls``:
-its kind under the XLA names ("all-reduce", "all-gather",
+here appends ``{"kind", "group", "ranks", "bytes", "site", "async"}`` to
+``calls``: its kind under the XLA names ("all-reduce", "all-gather",
 "reduce-scatter"), its group (None: the default group) and that group's
-size, the bytes of its result tensor, and the ``site`` label in force
+size, the bytes of its result tensor, the ``site`` label in force
 (``site("gradients")`` around the gradient reduction; "activations"
-otherwise).  Outside it, a collective costs one ``is None`` check more.
+otherwise) and whether it was started asynchronously (a ``Work`` added to a
+``Pending``; a staged or synchronous call is not).  ``inventory(clock)``
+also stamps each call with ``clock()`` when it is issued (``issued_at``)
+and each asynchronous one with ``clock()`` when the ``Pending.wait`` that
+ends it returns (``waited_at``): with a clock that counts the rank's compute
+operations, their difference is the work issued while the collective was in
+flight (``scripts/hlo_overlap_schedule.py``).  Outside it, a collective
+costs one ``is None`` check more.
 """
 
 from __future__ import annotations
@@ -46,19 +53,21 @@ import torch
 import torch.distributed as dist
 
 _INVENTORY: Optional[List[Dict]] = None
+_CLOCK: Optional[Callable[[], int]] = None
 _SITE = "activations"
 
 
 @contextlib.contextmanager
-def inventory():
-    """Record every collective issued inside the block (the module
-    docstring); yields the list."""
-    global _INVENTORY
+def inventory(clock: Optional[Callable[[], int]] = None):
+    """Record every collective issued inside the block, stamped by
+    ``clock`` when given (the module docstring); yields the list."""
+    global _INVENTORY, _CLOCK
     outer, _INVENTORY = _INVENTORY, []
+    outer_clock, _CLOCK = _CLOCK, clock
     try:
         yield _INVENTORY
     finally:
-        _INVENTORY = outer
+        _INVENTORY, _CLOCK = outer, outer_clock
 
 
 @contextlib.contextmanager
@@ -72,10 +81,16 @@ def site(name: str):
         _SITE = outer
 
 
-def _note(kind: str, result_bytes: int, group) -> None:
-    if _INVENTORY is not None:
-        _INVENTORY.append({"kind": kind, "group": group, "ranks": _size(group),
-                           "bytes": result_bytes, "site": _SITE})
+def _note(kind: str, result_bytes: int, group, started: bool = False) -> Optional[Dict]:
+    """The inventory's entry of a call (None outside ``inventory``)."""
+    if _INVENTORY is None:
+        return None
+    entry = {"kind": kind, "group": group, "ranks": _size(group), "bytes": result_bytes,
+             "site": _SITE, "async": started}
+    if _CLOCK is not None:
+        entry["issued_at"] = _CLOCK()
+    _INVENTORY.append(entry)
+    return entry
 
 
 class Pending:
@@ -85,13 +100,20 @@ class Pending:
     def __init__(self):
         self._works: List = []
 
-    def add(self, work) -> None:
-        self._works.append(work)
+    def add(self, work, entry: Optional[Dict] = None) -> None:
+        """``work`` in flight; ``entry``: its inventory entry, stamped when
+        the wait returns."""
+        self._works.append((work, entry))
 
     def wait(self) -> None:
         works, self._works = self._works, []
-        for work in works:
+        for work, _ in works:
             work.wait()
+        if _CLOCK is not None:
+            at = _CLOCK()
+            for _, entry in works:
+                if entry is not None:
+                    entry["waited_at"] = at
 
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -105,15 +127,17 @@ def _size(group) -> int:
 
 def _all_reduce_(t: torch.Tensor, group, pending: Optional[Pending] = None) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place; returns ``t``."""
-    _note("all-reduce", t.numel() * t.element_size(), group)
-    if _staged(t, group):
+    staged = _staged(t, group)
+    entry = _note("all-reduce", t.numel() * t.element_size(), group,
+                  started=pending is not None and not staged)
+    if staged:
         host = t.cpu()
         dist.all_reduce(host, group=group)
         t.copy_(host)
         return t
     work = dist.all_reduce(t, group=group, async_op=pending is not None)
     if pending is not None:
-        pending.add(work)
+        pending.add(work, entry)
     return t
 
 
@@ -121,8 +145,10 @@ def _all_gather(block: torch.Tensor, group, pending: Optional[Pending] = None) -
     """``[size * rows, ...]``: every rank's ``block`` stacked in rank order."""
     n = _size(group)
     src = block.contiguous()
-    _note("all-gather", n * src.numel() * src.element_size(), group)
-    if _staged(src, group):
+    staged = _staged(src, group)
+    entry = _note("all-gather", n * src.numel() * src.element_size(), group,
+                  started=pending is not None and not staged)
+    if staged:
         host = src.cpu()
         full = torch.empty((n * host.shape[0],) + tuple(host.shape[1:]), dtype=host.dtype)
         dist.all_gather(list(full.chunk(n)), host, group=group)
@@ -132,7 +158,7 @@ def _all_gather(block: torch.Tensor, group, pending: Optional[Pending] = None) -
     work = dist.all_gather(list(full.chunk(n)), src, group=group,
                            async_op=pending is not None)
     if pending is not None:
-        pending.add(work)
+        pending.add(work, entry)
     return full
 
 

@@ -31,7 +31,25 @@ meshes (2, 2) (f32 and bf16 ``grad_reduce_dtype``), (4, 1) and (1, 4):
   parameters after the mesh's step and after the mesh's update of the
   single process's gradients, each against the single process's (the worst
   leaf over every rank's blocks), so that the two steps are held against
-  each other where the trajectories have parted.
+  each other where the trajectories have parted;
+* ``teacher_forced_rule``: the rule that decides whether a mesh's trace
+  leaving the single process's is a fault, stated before the card run
+  that judged it.  At each of the single process's saved points, on every
+  f32 mesh: (a) the loss within ``RULE_LOSS_ABS`` (the JAX bound, now per
+  step from a shared point); (b) on every leaf and every rank's block, the
+  gradients after the mesh's reduction within ``RULE_GRADS_REL`` of the
+  leaf's largest magnitude; (c) the mesh's update applied to the single
+  process's gradients gives the single process's next parameters bit for
+  bit.  The control, the (2, 2) mesh with a bf16 row reduction
+  (``CONTROL``), goes through the same points, and (b) must reject it.  A
+  fault in the gradients or the update fails (b) or (c): the CPU tests
+  inject two into the reduction and see the rule reject them.
+
+Not built: the JAX record's literal counterpart, the same sharded program
+with its four ranks in one process.  The port's collectives run inside
+``autograd.Function.backward`` (``parallel/collectives.py``), and autograd
+runs the CUDA nodes of every thread's backward on one device thread, so four
+in-process ranks on ``cuda:0`` would block one another.
 
 On the card every rank sits on ``cuda:0`` (NCCL cannot place two ranks on
 one card): the steady ms read gloo, the host staging of
@@ -93,6 +111,14 @@ EXACT_TOL = 1e-4
 RERUN = ("1proc_4dev_2x2", "4proc_2x2")
 # The seed of the injected draws (``draws``).
 DRAW_SEED = 11
+# ``teacher_forced_rule`` (the module docstring): (a) the loss's absolute
+# gap, (b) the reduced gradients' gap over the leaf's largest magnitude,
+# (c) the update's gap on the single process's gradients (bit for bit).
+RULE_LOSS_ABS = EXACT_TOL
+RULE_GRADS_REL = 1e-5
+RULE_UPDATE_ONLY_REL = 0.0
+# The control that rule (b) must reject: (nr, ne, grad_reduce_dtype).
+CONTROL = (2, 2, "bfloat16")
 
 
 def world(graph_kw: Optional[Dict] = None, split=SPLIT):
@@ -222,8 +248,20 @@ def single_trace(steps: int = STEPS, device: str = "cuda", graph_kw: Optional[Di
     with the mesh's update (``grad_dtype`` f32: no cast).  ``save_dir``:
     each step's starting point is saved there (``point_<i>.pt``: its
     parameters, Adam state and gradients; ``point_<N>.pt`` the last
-    parameters), and the times include the saves."""
+    parameters), and the times include the saves; on the CPU they run on one
+    thread, since several threads sum a scatter-add in no fixed order and the
+    saved gradients would then not be the ones the step applied."""
     dev = worlds.rank_device(device)
+    threads = torch.get_num_threads()
+    if save_dir is not None and dev.type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        return _single_trace(steps, dev, graph_kw, model_kw, batch_size, save_dir)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _single_trace(steps, dev, graph_kw, model_kw, batch_size, save_dir) -> Dict:
     graph, splits = world(graph_kw)
     dg = build_device_graph(graph, splits, densify_max_cells=400_000_000, build_fused=False,
                             device=dev)
@@ -361,11 +399,16 @@ def _worst(entries: List[Dict]) -> Dict:
     return max(entries, key=lambda e: e["rel"])
 
 
+def teacher_tag(nr: int, ne: int, dtype: str) -> str:
+    """The ``CONFIGS`` tag of a 4-rank mesh and reduction dtype."""
+    return f"4proc_{nr}x{ne}" + ("" if dtype == "float32" else "_bf16")
+
+
 def teacher_forced(meshes, steps: int, device: str, **kw) -> Dict:
     """The single process's trace, its points saved at every step, and each
-    ``(nr, ne)`` mesh of ``meshes`` at each of those points
-    (``teacher_points``): whether the two steps compute one function, one
-    gradient and one update where the trajectories part.  Each step's
+    ``(nr, ne, grad_reduce_dtype)`` mesh of ``meshes`` at each of those
+    points (``teacher_points``): whether the two steps compute one function,
+    one gradient and one update where the trajectories part.  Each step's
     gradient and parameter gaps are the worst over the ranks."""
     import tempfile
 
@@ -373,11 +416,53 @@ def teacher_forced(meshes, steps: int, device: str, **kw) -> Dict:
     with tempfile.TemporaryDirectory() as tmp:
         single = worlds.run_world(MODULE, 1, dict(nr=1, ne=1, dtype="float32", steps=steps,
                                                   device=device, save_dir=tmp, **kw))[0]
-        for nr, ne in meshes:
+        for nr, ne, dtype in meshes:
             ranks = worlds.run_world(MODULE, nr * ne, dict(
-                nr=nr, ne=ne, dtype="float32", steps=steps, device=device, teacher_dir=tmp,
-                **kw))
-            out[f"4proc_{nr}x{ne}"] = teacher_entry(single["losses"], ranks)
+                nr=nr, ne=ne, dtype=dtype, steps=steps, device=device, teacher_dir=tmp, **kw))
+            out[teacher_tag(nr, ne, dtype)] = teacher_entry(single["losses"], ranks)
+    return out
+
+
+def judge(entry: Dict) -> Dict:
+    """Rule (a)-(c) on a ``teacher_entry``: each part's worst figure beside
+    its limit, the step it came from, and whether the part and the whole
+    hold.  A NaN figure holds nothing."""
+    def worst_step(by_step):
+        return max(range(len(by_step)), key=lambda i: by_step[i]["rel"])
+
+    diffs = entry["abs_diff_by_step"]
+    parts = {
+        "a_loss_abs": dict(worst=entry["max_abs"], limit=RULE_LOSS_ABS,
+                           step=max(range(len(diffs)), key=diffs.__getitem__),
+                           holds=entry["max_abs"] < RULE_LOSS_ABS),
+        "b_grads_rel": dict(worst=entry["grads_worst"]["rel"], limit=RULE_GRADS_REL,
+                            leaf=entry["grads_worst"]["leaf"],
+                            step=worst_step(entry["grads_by_step"]),
+                            holds=entry["grads_worst"]["rel"] < RULE_GRADS_REL),
+        "c_update_only_rel": dict(worst=entry["update_only_worst"]["rel"],
+                                  limit=RULE_UPDATE_ONLY_REL,
+                                  leaf=entry["update_only_worst"]["leaf"],
+                                  step=worst_step(entry["update_only_by_step"]),
+                                  holds=entry["update_only_worst"]["rel"] <= RULE_UPDATE_ONLY_REL),
+    }
+    return dict(parts, holds=all(p["holds"] for p in parts.values()))
+
+
+def rule_record(teacher: Dict) -> Dict:
+    """``teacher_forced_rule``: ``judge`` of every f32 mesh of ``teacher``
+    and of the control, whether the rule holds on every f32 mesh and
+    whether it rejects the control."""
+    control = teacher_tag(*CONTROL)
+    meshes = {tag: judge(e) for tag, e in teacher.items() if tag != control}
+    out = {"rule": ("at each of the single process's saved points: (a) |loss - single| < "
+                    f"{RULE_LOSS_ABS}; (b) every leaf and rank block of the reduced gradients "
+                    f"within {RULE_GRADS_REL} of the leaf's largest magnitude; (c) the mesh's "
+                    "update of the single process's gradients equals its next parameters bit "
+                    "for bit"),
+           "meshes": meshes, "holds_on_every_f32_mesh": all(m["holds"] for m in meshes.values())}
+    if control in teacher:
+        out["control"] = {control: judge(teacher[control])}
+        out["control_rejected"] = not out["control"][control]["holds"]
     return out
 
 
@@ -437,13 +522,17 @@ def multihost_bench(device: str = "cuda", steps: int = STEPS, configs=None,
             abs(x - y) for x, y in zip(first, again))}
         log(f"[mh +{time.perf_counter() - t0:.0f}s] {tag} again: "
             f"{out['reruns'][tag]['max_abs_vs_first_run']} from its first run")
-    meshes = sorted({(nr, ne) for nr, ne, nproc, dtype in (configs or CONFIGS).values()
-                     if nproc > 1 and dtype == "float32"})
+    runs = (configs or CONFIGS).values()
+    meshes = sorted({(nr, ne, dtype) for nr, ne, nproc, dtype in runs
+                     if nproc > 1 and (dtype == "float32" or (nr, ne, dtype) == CONTROL)})
     out["teacher_forced"] = teacher_forced(meshes, steps, device, **kw)
     for tag, tf in out["teacher_forced"].items():
         log(f"[mh +{time.perf_counter() - t0:.0f}s] {tag} on the single process's points: "
             f"loss {tf['max_abs']}, gradients {tf['grads_worst']}, parameters "
             f"{tf['params_worst']}, the update alone {tf['update_only_worst']}")
+    out["teacher_forced_rule"] = rule_record(out["teacher_forced"])
+    log(f"[mh +{time.perf_counter() - t0:.0f}s] the rule: "
+        f"{json.dumps(out['teacher_forced_rule'])}")
     out["wall_s"] = round(time.perf_counter() - t0, 1)
     return out
 

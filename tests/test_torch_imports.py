@@ -59,7 +59,8 @@ def test_port_and_chip_smoke_import_no_jax():
                    "scripts.profile_sddmm", "scripts.worlds", "scripts.scaling_model",
                    "scripts.multihost_sim", "scripts.multihost_bench",
                    "scripts.multihost_overlap", "scripts.bench_sharded",
-                   "scripts.diag_sharded", "scripts.hlo_collectives"):
+                   "scripts.diag_sharded", "scripts.hlo_collectives",
+                   "scripts.hlo_overlap_schedule", "scripts.ingest_fullsize"):
         assert f"decagon_tpu_torch.{module}" in report["modules"]
     leaked = [
         m for m in report["loaded"]

@@ -34,6 +34,18 @@ port's copy of the formulas is the JAX script's.
 (h) Records: each checked-in card record holds the JAX artifact's keys (and
 an entry's keys), names the card and its power limit, and shows K7 once an
 optimization step in every rank and every trainer.
+(i) The teacher-forced rule (``multihost_bench.judge``): on the (2, 2) mesh
+at the single process's saved points it holds; the bf16 control fails its
+part (b); each fault injected into the gradient reduction by the test's rank
+code (``tests/torch_mesh_ranks.FAULTS``: one rank's partial of the replicated
+leaves dropped, the row-axis reduce-scatter of ``gather_rows``' backward
+skipped on one rank) fails it.  The card record carries the rule's verdict
+for the three f32 meshes and the control.
+(j) ``hlo_overlap_schedule``: its configuration is the JAX script's; in the
+4-rank CPU gloo world (asynchronous there) overlap on gives the predicted
+pairs (per layer, one edge sum per edge type, all but the last with compute
+between, and as many row gathers, none with compute between), overlap off
+none, and both the same loss; a staged call is never a pair.
 """
 
 import ast
@@ -50,6 +62,7 @@ import torch
 from decagon_tpu_torch.scripts import bench_sharded as bs
 from decagon_tpu_torch.scripts import diag_sharded as ds
 from decagon_tpu_torch.scripts import hlo_collectives as hc
+from decagon_tpu_torch.scripts import hlo_overlap_schedule as hos
 from decagon_tpu_torch.scripts import multihost_bench as mb
 from decagon_tpu_torch.scripts import multihost_overlap as mo
 from decagon_tpu_torch.scripts import multihost_sim as ms
@@ -207,6 +220,19 @@ def test_hlo_collectives_config():
     assert "[(1, 8), (2, 4), (4, 2)]" in ast.unparse(tree) and hc.MESHES == [(1, 8), (2, 4),
                                                                              (4, 2)]
     assert _kw(_calls(tree, "make_sharded_train_step")[0]) == {"shard_weights": True}
+
+
+def test_hlo_overlap_schedule_config():
+    tree = _tree("hlo_overlap_schedule")
+    assert _one(tree, "make_polypharmacy_like_graph") == hos.GRAPH
+    assert _one(tree, "split_graph") == hos.SPLIT
+    assert _one(tree, "ModelConfig") == hos.MODEL
+    train = _one(tree, "TrainConfig")
+    assert train.pop("comm_overlap") == "overlap" and train == {"batch_size": hos.BATCH}
+    assert _kw(_calls(tree, "make_sharded_train_step")[0]) == {"shard_weights": True}
+    assert f"reshape{hos.SHAPE}".replace(" ", "") in ast.unparse(tree).replace(" ", "")
+    assert "analyze(True)" in ast.unparse(tree) and "analyze(False)" in ast.unparse(tree)
+    assert "make_sharded_train_step(model, (1, 1)" in ast.unparse(tree)
 
 
 # ---- (b) the scaling model -------------------------------------------------
@@ -399,8 +425,9 @@ def test_multihost_bench_mesh_at_the_single_process_points(world4):
     assert entry["grads_worst"]["rel"] < 1e-5, entry["grads_worst"]
     assert entry["params_worst"]["rel"] < 1e-2, entry["params_worst"]
     assert entry["params_worst"]["max_abs"] > 0 and entry["grads_worst"]["leaf"]
-    # The mesh's update of the single process's gradients: a unit in the
-    # parameters' last place (1.5e-5 of the step's change here).
+    # The mesh's update of the single process's gradients: its next point,
+    # bit for bit since the single process saves on one CPU thread (a unit
+    # in the parameters' last place, 1.5e-5 of the step's change, before).
     assert entry["update_only_worst"]["rel"] < 1e-4, entry["update_only_worst"]
 
 
@@ -564,3 +591,120 @@ def test_card_diag_sharded_record():
     for key in ("single_cost", "sharded_cost"):
         assert rec[key]["device_busy_ms"] > 0 and rec[key]["kernels"] > 0
     _on_card(rec)
+
+
+def test_card_multihost_bench_record_judges_the_rule():
+    rec = _artifact("torch_multihost_bench.json")
+    rule = rec["teacher_forced_rule"]
+    assert set(rule["meshes"]) == {"4proc_2x2", "4proc_4x1", "4proc_1x4"}
+    limits = {"a_loss_abs": mb.RULE_LOSS_ABS, "b_grads_rel": mb.RULE_GRADS_REL,
+              "c_update_only_rel": mb.RULE_UPDATE_ONLY_REL}
+    for verdict in list(rule["meshes"].values()) + list(rule["control"].values()):
+        assert {k: verdict[k]["limit"] for k in limits} == limits
+        assert verdict["holds"] == all(verdict[k]["holds"] for k in limits)
+    assert set(rule["control"]) == {"4proc_2x2_bf16"}
+    assert rule["control_rejected"] is not rule["control"]["4proc_2x2_bf16"]["holds"]
+    assert rule["holds_on_every_f32_mesh"] == all(m["holds"] for m in rule["meshes"].values())
+    # The trace's verdicts keep their keys, meaning and bound.
+    assert isinstance(rec["cross_process_equals_single_process"], bool)
+    assert rec["cross_process_equals_single_process"] == (
+        rec["max_abs_vs_single_process"]["4proc_2x2"] < mb.EXACT_TOL == 1e-4)
+
+
+def test_card_hlo_overlap_schedule_record():
+    rec = _artifact("torch_hlo_overlap_schedule.json")
+    jax_rec = _artifact("hlo_overlap_schedule.json")
+    assert {"config", "note"} <= set(jax_rec) <= set(rec) | {"finding"}
+    keys = {"async_collective_pairs", "pairs_with_compute_between",
+            "total_compute_ops_inside_spans", "by_kind", "ops_issued_in_step"}
+    assert set(rec["worlds"]) == {"gloo_cuda_4x2", "gloo_cpu_4x2", "nccl_cuda_1x1"}
+    for key in ("overlap_on", "overlap_off"):
+        assert keys <= set(rec[key])
+        for tag, w in rec["worlds"].items():
+            assert keys <= set(w[key]), tag
+            # K7 on the card; a world of CPU ranks launches no kernel.
+            assert w[key]["launches"] == ({"adam": 1} if "cuda" in tag else {}), tag
+            ranks = w["mesh"][0] * w["mesh"][1]
+            assert w[key]["adam_launches_per_rank"] == [int("cuda" in tag)] * ranks, tag
+            assert w[key]["async_never_waited"] == {}, tag
+    for tag, w in rec["worlds"].items():
+        assert w["on_off_loss_equal"], tag
+        assert w["overlap_off"]["async_collective_pairs"] == 0, tag
+    staged = rec["worlds"]["gloo_cuda_4x2"]
+    assert staged["overlap_on"]["async_collective_pairs"] == 0
+    assert rec["worlds"]["nccl_cuda_1x1"]["overlap_on"]["async_collective_pairs"] > 0
+    assert rec["counted_by"] == hos.COUNTED_BY
+    _on_card(rec)
+
+
+# ---- (i) the teacher-forced rule ----------------------------------------------
+
+def _teacher(world4, key):
+    return mb.teacher_entry(world4["single"]["losses"], {r: world4[r][key] for r in range(4)})
+
+
+def test_rule_holds_on_the_f32_mesh(world4):
+    verdict = mb.judge(_teacher(world4, "teacher"))
+    assert verdict["holds"], verdict
+    assert verdict["c_update_only_rel"]["worst"] == 0.0
+
+
+def test_rule_rejects_the_bf16_control(world4):
+    verdict = mb.judge(_teacher(world4, "teacher_bf16"))
+    assert not verdict["b_grads_rel"]["holds"] and not verdict["holds"], verdict
+    # A bf16 sum rounds at 2^-9 of the value: far beyond the rule's 1e-5.
+    assert verdict["b_grads_rel"]["worst"] > 100 * mb.RULE_GRADS_REL
+    record = mb.rule_record({"4proc_2x2": _teacher(world4, "teacher"),
+                             "4proc_2x2_bf16": _teacher(world4, "teacher_bf16")})
+    assert record["holds_on_every_f32_mesh"] and record["control_rejected"]
+
+
+@pytest.mark.parametrize("fault", sorted(ranks.FAULTS))
+def test_rule_rejects_an_injected_reduction_fault(world4, fault):
+    verdict = mb.judge(_teacher(world4, f"teacher_{fault}"))
+    assert not verdict["holds"], verdict
+    assert not verdict["b_grads_rel"]["holds"], verdict
+
+
+# ---- (j) hlo_overlap_schedule ---------------------------------------------------
+
+def test_overlap_schedule_gives_the_predicted_pairs(world4):
+    on, off = (hos.variant({r: world4[r]["schedule"][o] for r in range(4)}) for o in (True, False))
+    n_types = len(on["edge_types"])
+    assert n_types == 4
+    # Per layer: an edge sum per edge type, all but the last with compute
+    # between, and as many row gathers, none with compute between.
+    assert on["async_collective_pairs"] == 2 * 2 * n_types
+    assert on["by_kind"] == {"all-reduce": 2 * n_types, "all-gather": 2 * n_types}
+    assert on["pairs_with_compute_between"] == 2 * (n_types - 1)
+    sums = [s for s in on["spans"] if s["kind"] == "all-reduce"]
+    assert [s["ops_between"] > 0 for s in sums] == ([True] * (n_types - 1) + [False]) * 2
+    assert all(s["group"] == "edge" for s in sums)
+    assert all(s["ops_between"] == 0 for s in on["spans"] if s["kind"] == "all-gather")
+    assert on["total_compute_ops_inside_spans"] >= 18
+    assert off["async_collective_pairs"] == 0 and off["by_kind"] == {}
+    assert on["loss"] == off["loss"] and math.isfinite(on["loss"])
+    assert on["ops_issued_in_step"] == off["ops_issued_in_step"] > 0
+    # Every start of every rank is ended by a wait (``variant`` raises
+    # otherwise); a CPU rank launches no kernel.
+    assert on["adam_launches_per_rank"] == [0] * 4 == off["adam_launches_per_rank"]
+
+
+def test_staged_and_synchronous_calls_are_no_pairs():
+    calls = [
+        {"kind": "all-reduce", "group": "edge", "async": True, "issued_at": 2, "waited_at": 5},
+        {"kind": "all-gather", "group": "row", "async": False, "issued_at": 5},
+        {"kind": "all-reduce", "group": "edge", "async": True, "issued_at": 7},
+    ]
+    out = hos.schedule(calls)
+    assert out["async_collective_pairs"] == 1 and out["total_compute_ops_inside_spans"] == 3
+    assert out["synchronous_collectives"] == {"all-gather": 1}
+    # An asynchronous start that no wait ended is no pair, and is reported.
+    assert out["async_never_waited"] == {"all-reduce": 1}
+
+
+def test_a_start_left_unwaited_fails_the_world():
+    ok = {"loss": 1.0, "async_never_waited": {}, "launches": {"adam": 1}}
+    assert hos.variant({0: ok, 1: ok})["adam_launches_per_rank"] == [1, 1]
+    with pytest.raises(RuntimeError, match="rank"):
+        hos.variant({0: ok, 1: dict(ok, async_never_waited={"all-gather": 1})})

@@ -15,6 +15,7 @@ one world serves many tests.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -479,19 +480,87 @@ def mesh_scripts_world2(rank: int, params_np, graph_kw, steps: int, batch: int):
     return res
 
 
+# The rank whose gradient reduction the faults below break.
+FAULT_RANK = 1
+
+
+def _drop_replicated_partial(orig):
+    """``sharded._reduce_gradients`` with ``FAULT_RANK``'s partial of the
+    leaves summed across the edge axis (the replicated ones, summed over the
+    whole mesh) left out: that rank hands zeros to the reduction."""
+    from decagon_tpu_torch.parallel import sharded
+
+    def reduce(loss, grads, sharded_keys, mesh, row_dtype):
+        if dist.get_rank() == FAULT_RANK:
+            values = {path: t if sharded._is_sharded_path(path, sharded_keys)
+                      else torch.zeros_like(t) for path, t in sharded._leaves(grads)}
+            grads = sharded._rebuild(grads, values)
+        return orig(loss, grads, sharded_keys, mesh, row_dtype)
+
+    return reduce
+
+
+def _skip_row_scatter(orig):
+    """``collectives._reduce_scatter`` (the row-axis reduction of
+    ``gather_rows``' backward) skipped on ``FAULT_RANK``: the rank still
+    takes part, so that the others are not left waiting, but keeps its own
+    block of the cotangent unsummed."""
+    def reduce_scatter(full, group):
+        out = orig(full, group)
+        if dist.get_rank() == FAULT_RANK:
+            return full.contiguous().chunk(dist.get_world_size(group))[
+                dist.get_rank(group)].clone()
+        return out
+
+    return reduce_scatter
+
+
+# name: (module, attribute, wrapper) of each injected reduction fault.
+FAULTS = {
+    "edge_partial_dropped": ("decagon_tpu_torch.parallel.sharded", "_reduce_gradients",
+                             _drop_replicated_partial),
+    "row_scatter_skipped": ("decagon_tpu_torch.parallel.collectives", "_reduce_scatter",
+                            _skip_row_scatter),
+}
+
+
+@contextlib.contextmanager
+def injected(fault: str):
+    """The package with ``FAULTS[fault]`` patched in, in this rank only."""
+    import importlib
+
+    module_name, attr, wrap = FAULTS[fault]
+    module = importlib.import_module(module_name)
+    orig = getattr(module, attr)
+    setattr(module, attr, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, attr, orig)
+
+
 def mesh_scripts_world4(rank: int, graph_kw, steps: int, batch: int, teacher_dir: str):
     """Four ranks: ``multihost_bench``'s (2, 2) traces with f32 and bf16
     row reductions and its losses at the single process's saved points
-    (``teacher_dir``), then ``hlo_collectives``' inventory of one step on
-    the (2, 2) mesh."""
-    from decagon_tpu_torch.scripts import hlo_collectives, multihost_bench
+    (``teacher_dir``): the f32 mesh, the bf16 control and the f32 mesh with
+    each injected fault; then ``hlo_collectives``' inventory of one step on
+    the (2, 2) mesh and ``hlo_overlap_schedule``'s schedule of one step with
+    ``comm_overlap`` on and off."""
+    from decagon_tpu_torch.scripts import hlo_collectives, hlo_overlap_schedule, multihost_bench
 
-    res = {dtype: multihost_bench.rank_main(rank, 4, 0, 2, 2, dtype, steps=steps, device="cpu",
-                                            graph_kw=graph_kw, batch_size=batch)
+    kw = dict(steps=steps, device="cpu", graph_kw=graph_kw, batch_size=batch)
+    res = {dtype: multihost_bench.rank_main(rank, 4, 0, 2, 2, dtype, **kw)
            for dtype in ("float32", "bfloat16")}
-    res["teacher"] = multihost_bench.rank_main(rank, 4, 0, 2, 2, "float32", steps=steps,
-                                               device="cpu", graph_kw=graph_kw,
-                                               batch_size=batch, teacher_dir=teacher_dir)
+    for tag, dtype in (("teacher", "float32"), ("teacher_bf16", "bfloat16")):
+        res[tag] = multihost_bench.rank_main(rank, 4, 0, 2, 2, dtype, teacher_dir=teacher_dir,
+                                             **kw)
+    for fault in FAULTS:
+        with injected(fault):
+            res[f"teacher_{fault}"] = multihost_bench.rank_main(
+                rank, 4, 0, 2, 2, "float32", teacher_dir=teacher_dir, **kw)
     res["inventory"] = hlo_collectives.rank_main(rank, 4, 0, 2, 2, device="cpu",
                                                  graph_kw=graph_kw, batch_size=batch)
+    res["schedule"] = {overlap: hlo_overlap_schedule.rank_main(
+        rank, 4, 0, 2, 2, overlap, device="cpu", graph_kw=graph_kw, batch_size=batch)
+        for overlap in (True, False)}
     return res
